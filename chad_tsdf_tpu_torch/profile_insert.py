@@ -1,0 +1,238 @@
+"""Where the time of one dense insert goes, on one device.
+
+    python3 -m chad_tsdf_tpu_torch.profile_insert            # on the H100
+    python3 -m chad_tsdf_tpu_torch.profile_insert --device cpu --points 8192
+
+Three measurements of the 2^20-point r = 5 m sphere insert (bench.py's
+cloud, seed 420) at the default ``MapConfig``:
+
+1. ``torch.profiler`` over ``--reps`` inserts after two warm-up inserts: the
+   operators by device time, and the device's busy share (the summed time
+   of its kernels and copies over the span from the first to the last);
+2. per-stage times of one insert, median of 5, with CUDA events (host clock
+   on the CPU): keys + sort, normals (K2), K1, directory + plan + K3, and
+   the one host read of ``tile_ovf``;
+3. K2 against its plain version on a dense-voxel cloud: ``--points``
+   points in clusters of ``--segment`` points that each lie in one voxel,
+   so one thread of K2 sums the whole cluster at every depth.
+
+The last line is a JSON object with the numbers of 1-3.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from chad_tsdf_tpu.config import MapConfig
+from .core import integrate
+from .core.map import TSDFMap
+from .core.state import create_state, origin_blocks_for_position
+from .ops import fused_integrate, normals, normals_cuda
+
+INT32_MAX = 2**31 - 1
+
+
+def sphere(n: int, r: float, seed: int) -> np.ndarray:
+    """bench.py's cloud: uniform cube directions, normalized, radius r."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(-1.0, 1.0, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (d * r).astype(np.float32)
+
+
+def voxel_clusters(n: int, segment: int, res: float, seed: int) -> np.ndarray:
+    """``n // segment`` clusters of ``segment`` points, each a planar patch
+    (+-1.5 cm, 0.2 mm noise) centred in one voxel on the r = 5 m sphere."""
+    rng = np.random.default_rng(seed)
+    k = max(1, n // segment)
+    d = rng.normal(size=(k, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    c = (np.floor(d * 5.0 / res) + 0.5) * res
+    t1 = np.cross(d, [0.0, 0.0, 1.0])
+    t1 /= np.linalg.norm(t1, axis=1, keepdims=True)
+    t2 = np.cross(d, t1)
+    uv = rng.uniform(-0.015, 0.015, (k, segment, 2))
+    h = rng.normal(0.0, 2e-4, (k, segment, 1))
+    p = (c[:, None] + uv[..., :1] * t1[:, None] + uv[..., 1:] * t2[:, None]
+         + h * d[:, None])
+    return p.reshape(-1, 3)[:n].astype(np.float32)
+
+
+class Stopwatch:
+    """Marks on CUDA events (device clock) or the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.marks.append(e)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def spans_ms(self):
+        if self.cuda:
+            self.marks[-1].synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks,
+                                                      self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile_inserts(pts: np.ndarray, device: torch.device, reps: int):
+    from torch.profiler import ProfilerActivity, profile
+    m = TSDFMap(0.05, 0.1, device=device)
+    origin = np.zeros(3, np.float32)
+    for _ in range(2):
+        m.insert(pts, origin)
+    sync(device)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        for _ in range(reps):
+            m.insert(pts, origin)
+        sync(device)
+    ka = prof.key_averages()
+    sort_by = "device_time_total" if device.type == "cuda" else \
+        "cpu_time_total"
+    print(ka.table(sort_by=sort_by, row_limit=20), flush=True)
+    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    host_us = sum(e.self_cpu_time_total for e in ka)
+    out = {"reps": reps, "host_op_ms_per_insert": host_us / 1e3 / reps}
+    if evs:
+        busy = sum(e.time_range.elapsed_us() for e in evs)
+        t0 = min(e.time_range.start for e in evs)
+        t1 = max(e.time_range.end for e in evs)
+        out.update(device_busy_ms_per_insert=busy / 1e3 / reps,
+                   device_window_ms_per_insert=(t1 - t0) / 1e3 / reps,
+                   device_busy_share=busy / (t1 - t0))
+    else:
+        out.update(device_busy_ms_per_insert="not measured",
+                   device_busy_share="not measured")
+    return out
+
+
+def stage_times(pts: np.ndarray, device: torch.device):
+    """Median per-stage ms over 5 inserts (after 2 warm-ups), through the
+    same calls as ``integrate.insert_step_fused`` on a tile-covered cloud."""
+    cfg = MapConfig()
+    p = torch.from_numpy(pts).to(device)
+    n = p.shape[0]
+    pos = torch.zeros(3, dtype=torch.float32, device=device)
+    st = create_state(cfg, origin_blocks_for_position(np.zeros(3), cfg),
+                      device)
+    names = ["keys + sort", "normals K2", "K1", "directory + plan + K3",
+             "host read"]
+    runs = []
+    for i in range(7):
+        sw = Stopwatch(device)
+        sw.mark()
+        bkey, okey, _ = integrate.point_keys_soa(
+            p[:, 0], p[:, 1], p[:, 2], n, st.origin_blocks, cfg)
+        sb, so, px, py, pz = integrate.sort_points_soa(
+            p[:, 0], p[:, 1], p[:, 2], bkey, okey)
+        sw.mark()
+        nx, ny, nz = integrate.estimate_normals_dispatch(
+            px, py, pz, sb, so, pos, st.origin_blocks, cfg)
+        sw.mark()
+        pk, psd, pw, cnt = fused_integrate.fused_tile_partials(
+            px, py, pz, nx, ny, nz, sb, pos, st.origin_blocks * 8,
+            nb=cfg.tile_nb, k=cfg.dda_steps, res=cfg.sdf_res,
+            trunc=cfg.sdf_trunc, extent=cfg.blocks_per_axis * 8)
+        sw.mark()
+        tot = cnt.sum(0, dtype=torch.int32)
+        st, _ = integrate.update_pool_tiled(st, pk, psd, pw, tot[1], tot[0],
+                                            tot[2], 0, cfg)
+        sw.mark()
+        int(tot[1])
+        sw.mark()
+        if i >= 2:
+            runs.append(sw.spans_ms())
+    return {k: statistics.median(r[i] for r in runs)
+            for i, k in enumerate(names)}
+
+
+def k2_dense_voxels(n: int, segment: int, device: torch.device):
+    """K2 and its plain version on clusters of ``segment`` points per voxel;
+    min dot between the two, the largest depth-0 segment, and both times."""
+    cfg = MapConfig()
+    p = torch.from_numpy(voxel_clusters(n, segment, cfg.sdf_res, 5)).to(
+        device)
+    origin = torch.from_numpy(origin_blocks_for_position(np.zeros(3), cfg)
+                              ).to(device)
+    bkey, okey, _ = integrate.point_keys_soa(p[:, 0], p[:, 1], p[:, 2],
+                                             p.shape[0], origin, cfg)
+    sb, so, px, py, pz = integrate.sort_points_soa(p[:, 0], p[:, 1],
+                                                   p[:, 2], bkey, okey)
+    pos = torch.zeros(3, dtype=torch.float32, device=device)
+    args = (px, py, pz, sb, so, pos, cfg.normal_min_points,
+            cfg.normal_max_depth)
+
+    def kernel():
+        return normals_cuda.estimate_normals(*args)
+
+    def plain():
+        return normals.estimate_normals_soa(
+            px, py, pz, sb, so, sb != INT32_MAX, pos, cfg.normal_min_points,
+            cfg.normal_max_depth)
+
+    dots = (torch.stack(kernel()) * torch.stack(plain())).sum(0)
+    _, counts = torch.unique_consecutive(
+        (sb.to(torch.int64) << 32) | so.to(torch.int64), return_counts=True)
+    out = {"points": int(p.shape[0]), "largest_segment": int(counts.max()),
+           "min_dot": float(dots.min())}
+    for name, fn in (("ms", kernel), ("plain_ms", plain)):
+        times = []
+        for i in range(5):
+            sw = Stopwatch(device)
+            sw.mark()
+            fn()
+            sw.mark()
+            if i >= 1:
+                times.append(sw.spans_ms()[0])
+        out[name] = statistics.median(times)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--points", type=int, default=1 << 20)
+    ap.add_argument("--segment", type=int, default=16384)
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip(), flush=True)
+    pts = sphere(args.points, 5.0, 420)
+    res = {"profile": profile_inserts(pts, device, args.reps)}
+    print("profile:", json.dumps(res["profile"]), flush=True)
+    res["stages_ms"] = stage_times(pts, device)
+    print("stages:", json.dumps(res["stages_ms"]), flush=True)
+    res["k2_dense_voxels"] = k2_dense_voxels(args.points, args.segment,
+                                             device)
+    print("k2 dense voxels:", json.dumps(res["k2_dense_voxels"]), flush=True)
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
