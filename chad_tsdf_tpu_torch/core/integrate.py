@@ -12,21 +12,31 @@ src/chad/tsdf.cpp:39-75):
   Octree::insert DDA  octree.hpp:92-152   ->  K1: DDA + sd + tile partials
   per-voxel upsert    octree.hpp:153-163  ->  directory update + K3 merge
 
-Two backends, chosen by ``MapConfig.accumulate_impl``:
+Four backends, chosen by ``MapConfig.accumulate_impl``:
 
 * ``fused`` (``auto`` on CUDA): :func:`insert_step_fused` — sort, normals,
   K1, then :func:`update_pool_tiled` (K3).  Samples beyond a tile's block
-  list are recovered through K4 and the scatter-form :func:`update_pool`.
-* ``xla`` (``auto`` on CPU): sample grids, one global sample sort, and the
-  scatter-form :func:`update_pool`.
+  list are recovered through K4 and the sort-based :func:`update_pool`.
+* ``tile``: :func:`insert_step_tiled` — sort, normals, the plain DDA's
+  sample grids, K4, K3, and the same fallback.
+* ``pallas``: sample grids, one global sample sort, and :func:`update_pool`
+  through K5.
+* ``xla`` (``auto`` on CPU): as ``pallas``, with the scatter-form
+  accumulate.
+
+:func:`update_pool` accumulates through K5 (``ops/accumulate.py``
+``accumulate_segments``) under ``pallas`` and, for every backend but
+``xla``, on CUDA — where the JAX package runs ``accumulate_pallas`` on the
+TPU — and through the scatter form otherwise.
 
 Counters and overflow semantics are those of the JAX package.  Where the
 JAX package branches on a device value (``lax.cond`` / ``lax.switch``), the
 port either computes both ways unconditionally (the directory rebuild is
 one sort of <= block_capacity + touched_capacity keys) or sizes the work
-statically and masks (K3's grid).  The single host read per insert is the
-fused path's total of uncovered samples, which decides whether the fallback
-runs; it is counted in the metrics as ``host_reads``.
+statically and masks (K3's and K5's grids).  The single host read per
+insert of the fused and tile paths is their total of uncovered samples,
+which decides whether the fallback runs; it is counted in the metrics as
+``host_reads``.
 
 The state passed in is consumed: its pool planes are updated in place
 (the JAX package donates them), and the returned state shares them.
@@ -217,18 +227,20 @@ def _directory_update(state: ActiveMapState, tb_keys, tvalid,
 
 
 def _touched_blocks(sorted_keys, t_cap: int):
-    """Touched-block segments of a key-sorted stream: (flags, starts_c,
-    t_count, touched_overflow, tvalid, tb_keys)."""
+    """Touched-block segments of a key-sorted stream: (flags, starts_full,
+    t_count, touched_overflow, tvalid, tb_keys).  ``starts_full`` holds
+    t_cap + 1 segment starts, so the end of the last kept segment is
+    known."""
     total = sorted_keys.shape[0]
     flags = segops.boundary_flags(sorted_keys) & (sorted_keys != INT32_MAX)
-    starts, _, t_total = segops.compact_flag_positions(flags, t_cap)
+    starts_full, _, t_total = segops.compact_flag_positions(flags, t_cap + 1)
     t_count = torch.clamp(t_total, max=t_cap)
     touched_overflow = torch.clamp(t_total - t_cap, min=0)
     tvalid = torch.arange(t_cap, dtype=torch.int32,
                           device=sorted_keys.device) < t_count
-    starts_c = torch.clamp(starts, max=total - 1)
+    starts_c = torch.clamp(starts_full[:t_cap], max=total - 1)
     tb_keys = torch.where(tvalid, sorted_keys[starts_c], INT32_MAX)
-    return flags, t_count, touched_overflow, tvalid, tb_keys
+    return flags, starts_full, t_count, touched_overflow, tvalid, tb_keys
 
 
 def _slot_per_entry(flags, tb_slots, t_cap: int, reserved_row: int):
@@ -239,25 +251,70 @@ def _slot_per_entry(flags, tb_slots, t_cap: int, reserved_row: int):
     return slot, (t_idx < t_cap) & (slot != reserved_row)
 
 
+def _use_segment_kernel(config: MapConfig, device: torch.device) -> bool:
+    """K5 route of :func:`update_pool` (the JAX package's ``_use_pallas``,
+    with CUDA in the TPU's role)."""
+    if config.accumulate_impl == "pallas":
+        return True
+    if config.accumulate_impl == "xla":
+        return False
+    return device.type == "cuda"
+
+
+def plan_segments(state: ActiveMapState, sorted_keys, n_valid_samples,
+                  config: MapConfig):
+    """Directory update and K5's member tables for a block-sorted stream.
+
+    Returns (directory, tables, t_count, touched_overflow): ``directory``
+    is :func:`_directory_update`'s tuple and ``tables`` the slot-sorted
+    (starts, lens, slots) of :func:`accumulate.group_touched_blocks`.  Each
+    touched block's segment is [start, start + len) of the stream, as in
+    the JAX package's update_pool; blocks that got the reserved slot have
+    no samples.
+    """
+    cb = config.block_capacity
+    t_cap = config.touched_capacity
+    total = sorted_keys.shape[0]
+    (_, starts_full, t_count, touched_overflow, tvalid,
+     tb_keys) = _touched_blocks(sorted_keys, t_cap)
+    directory = _directory_update(state, tb_keys, tvalid, config)
+    tb_slots = directory[3]
+    starts = starts_full[:t_cap]
+    ends = torch.minimum(starts_full[1:], n_valid_samples)
+    lens = torch.where(tvalid & (tb_slots != cb - 1),
+                       torch.clamp(ends - starts, min=0), 0)
+    tables = accumulate.group_touched_blocks(
+        torch.clamp(starts, max=total - 1), lens, tb_slots, t_cap, cb)[4:]
+    return directory, tables, t_count, touched_overflow
+
+
 def update_pool(state: ActiveMapState, batch: SampleBatch,
                 config: MapConfig):
-    """Touched-block segmentation, directory merge and scatter-add of a
-    block-sorted sample batch (:func:`sort_samples`) into the pool.
+    """Touched-block segmentation, directory merge and accumulate of a
+    block-sorted sample batch (:func:`sort_samples`) into the pool: K5 on
+    its route (:func:`_use_segment_kernel`), the scatter form otherwise.
     Returns (new_state, metrics)."""
     t_cap = config.touched_capacity
     reserved_row = config.block_capacity - 1
     s_bkey = batch.bkey
     valid = s_bkey != INT32_MAX
     n_valid_samples = valid.sum(dtype=torch.int32)
-    flags, t_count, touched_overflow, tvalid, tb_keys = _touched_blocks(
-        s_bkey, t_cap)
-    (dir_keys, dir_slots, n_blocks, tb_slots, n_new,
-     block_overflow) = _directory_update(state, tb_keys, tvalid, config)
-
-    s_okey, s_sd = unpack_payload(batch.payload, config.sdf_trunc)
-    slot, kept = _slot_per_entry(flags, tb_slots, t_cap, reserved_row)
-    pool_sd, pool_w = accumulate.accumulate_xla(
-        state.pool_sd, state.pool_w, slot, s_okey, s_sd, valid & kept)
+    if _use_segment_kernel(config, s_bkey.device):
+        directory, tables, t_count, touched_overflow = plan_segments(
+            state, s_bkey, n_valid_samples, config)
+        pool_sd, pool_w = accumulate.accumulate_segments(
+            state.pool_sd, state.pool_w, *tables, batch.payload,
+            config.sdf_trunc)
+    else:
+        flags, _, t_count, touched_overflow, tvalid, tb_keys = \
+            _touched_blocks(s_bkey, t_cap)
+        directory = _directory_update(state, tb_keys, tvalid, config)
+        s_okey, s_sd = unpack_payload(batch.payload, config.sdf_trunc)
+        slot, kept = _slot_per_entry(flags, directory[3], t_cap,
+                                     reserved_row)
+        pool_sd, pool_w = accumulate.accumulate_xla(
+            state.pool_sd, state.pool_w, slot, s_okey, s_sd, valid & kept)
+    (dir_keys, dir_slots, n_blocks, _, n_new, block_overflow) = directory
 
     new_state = dataclasses.replace(
         state, dir_keys=dir_keys, dir_slots=dir_slots, n_blocks=n_blocks,
@@ -285,7 +342,7 @@ def plan_tiled_merge(state: ActiveMapState, pkeys, config: MapConfig):
     reserved_row = cb - 1
     p = pkeys.shape[0]
     sk, order = torch.sort(pkeys.reshape(-1), stable=True)
-    flags, t_count, touched_overflow, tvalid, tb_keys = _touched_blocks(
+    flags, _, t_count, touched_overflow, tvalid, tb_keys = _touched_blocks(
         sk, t_cap)
     directory = _directory_update(state, tb_keys, tvalid, config)
     tb_slots = directory[3]
@@ -345,7 +402,10 @@ def insert_step(state: ActiveMapState, points, n_points: int, position,
     impl = _accumulate_impl(config, state.device)
     if impl == "fused":
         return insert_step_fused(state, points, n_points, position, config)
-    if impl == "xla":
+    if impl == "tile":
+        return insert_step_tiled(state, points, n_points, position, config)
+    if impl in ("pallas", "xla"):
+        # global sample sort; update_pool picks K5 or the scatter form
         batch = compute_samples(points, n_points, position,
                                 state.origin_blocks, config)
         state, metrics = update_pool(state, sort_samples(batch), config)
@@ -353,7 +413,20 @@ def insert_step(state: ActiveMapState, points, n_points: int, position,
         return state, metrics
     raise NotImplementedError(
         f"accumulate_impl={impl!r} is not ported to PyTorch yet "
-        "(see ROADMAP.md); use 'auto', 'fused' or 'xla'")
+        "(see ROADMAP.md); use 'auto', 'fused', 'tile', 'pallas' or 'xla'")
+
+
+def _fallback(state: ActiveMapState, s_bkey, s_okey, sd, ovfmask,
+              config: MapConfig):
+    """The samples a tile's block list could not cover (``ovfmask``) go
+    through the sort-based :func:`update_pool`; returns (state, n_new)."""
+    fb_key = torch.where(ovfmask, s_bkey, INT32_MAX).reshape(-1)
+    payload = torch.where(ovfmask, pack_payload(s_okey, sd, config.sdf_trunc),
+                          0)
+    zero = _zero(s_bkey.device)
+    batch = sort_samples(SampleBatch(fb_key, payload.reshape(-1), zero, zero))
+    state, m = update_pool(state, batch, config)
+    return state, m["n_new_blocks"]
 
 
 def insert_step_fused(state: ActiveMapState, points, n_points: int,
@@ -391,14 +464,39 @@ def insert_step_fused(state: ActiveMapState, points, n_points: int,
         ovfmask = tile_accum.tile_partials(s_bkey, s_okey, sd,
                                            config.tile_nb,
                                            config.sdf_trunc)[3] != 0
-        fb_key = torch.where(ovfmask, s_bkey, INT32_MAX).reshape(-1)
-        payload = torch.where(ovfmask,
-                              pack_payload(s_okey, sd, config.sdf_trunc), 0)
-        zero = _zero(s_bkey.device)
-        batch = sort_samples(SampleBatch(fb_key, payload.reshape(-1), zero,
-                                         zero))
-        state, m = update_pool(state, batch, config)
-        extra_new = m["n_new_blocks"]
+        state, extra_new = _fallback(state, s_bkey, s_okey, sd, ovfmask,
+                                     config)
+    metrics["n_new_blocks"] = metrics["n_new_blocks"] + extra_new
+    metrics["n_blocks"] = state.n_blocks
+    metrics["host_reads"] = 1
+    return state, metrics
+
+
+def insert_step_tiled(state: ActiveMapState, points, n_points: int,
+                      position, config: MapConfig):
+    """Tiled insert: Morton point sort -> normals -> DDA sample grids -> K4
+    per-tile partial rows -> K3 merge; no global sample sort.  Samples
+    beyond a tile's block list (one host read of their count) go through
+    the sort-based :func:`update_pool`, as in the fused path."""
+    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
+    bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
+                                             state.origin_blocks, config)
+    sb, so, px, py, pz = sort_points_soa(px, py, pz, bkey, okey)
+    s_bkey, s_okey, sd, n_valid, samp_overflow = compute_sample_grids_soa(
+        px, py, pz, sb, so, position, state.origin_blocks, config)
+    pkeys, psd, pw, ovfmask = tile_accum.tile_partials(
+        s_bkey, s_okey, sd, config.tile_nb, config.sdf_trunc)
+    ovfmask = ovfmask != 0
+    tile_ovf = ovfmask.sum(dtype=torch.int32)
+    state, metrics = update_pool_tiled(state, pkeys, psd, pw, tile_ovf,
+                                       n_valid, samp_overflow, pt_overflow,
+                                       config)
+    del pkeys, psd, pw
+
+    extra_new = 0
+    if int(tile_ovf) > 0:                      # the one host read
+        state, extra_new = _fallback(state, s_bkey, s_okey, sd, ovfmask,
+                                     config)
     metrics["n_new_blocks"] = metrics["n_new_blocks"] + extra_new
     metrics["n_blocks"] = state.n_blocks
     metrics["host_reads"] = 1

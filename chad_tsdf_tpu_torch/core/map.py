@@ -12,10 +12,12 @@ include/chad/tsdf.hpp:21-171, src/chad/tsdf.cpp:26-86):
   meshes every submap unless ``mesh_first_submap_only``.
 
 The device is explicit (``device="cpu"`` or ``"cuda"``) and never chosen
-by probing.  Not ported yet (ROADMAP.md): the sparse ``seg`` backend,
-packed ingest, carving, deferred rotation, device marching cubes, the
-``.grid`` dump, raycast/merge/leaf_arrays/stats and loop closure; the
-options that select them raise NotImplementedError.
+by probing.  ``accumulate_impl`` may be ``auto``, ``fused``, ``tile``,
+``pallas`` or ``xla`` (core/integrate.py).  Not ported yet (ROADMAP.md):
+the sparse ``seg`` and ``sample_tile`` backends, packed ingest, carving,
+deferred rotation, device marching cubes, the ``.grid`` dump,
+raycast/merge/leaf_arrays/stats and loop closure; the options that select
+them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -93,7 +95,8 @@ def _check_ported(config: MapConfig) -> None:
         missing.append("save_grid")
     if config.mesh_impl == "device":
         missing.append("mesh_impl='device'")
-    if config.accumulate_impl not in ("auto", "fused", "xla"):
+    if config.accumulate_impl not in ("auto", "fused", "tile", "pallas",
+                                      "xla"):
         missing.append(f"accumulate_impl={config.accumulate_impl!r}")
     if missing:
         raise NotImplementedError(

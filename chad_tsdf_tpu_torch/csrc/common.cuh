@@ -4,7 +4,9 @@
 // K4 (tile_accum.cu) have in common: the block list, coverage rule, ranks
 // and per-tile partial rows of one 1024-point tile.  Both kernels call this
 // one function, so the coverage rule that the fused insert's fallback
-// re-derives through K4 cannot diverge from K1's.
+// re-derives through K4 cannot diverge from K1's.  Its phases (block list,
+// ranks, slab accumulate) are also separate functions, which the
+// microbenchmark kernels of micro.cu time one at a time.
 //
 // It replaces the list/rank/accumulate stages of the TPU kernels
 // chad_tsdf_tpu/ops/tile_accum.py:_tile_kernel and
@@ -106,21 +108,14 @@ __device__ __forceinline__ TileSmem tile_smem(int* base, int k, int nb) {
   return s;
 }
 
-// The tile's samples sit in s.key / s.pay at [r * kTile + threadIdx.x],
-// r < k.  Builds the list of the nb smallest distinct valid block keys
-// (ascending, kInt32Max-padded) and writes it to pkeys; writes the tile's
-// partial rows psd/pw (nb x 512, zero where nothing landed) with sd sums
-// dequantized by dscale; and returns, for this thread's column, a bit mask
-// over r of the valid samples that are NOT covered (key beyond the list).
+// The phases of a tile, each over the samples in s.key / s.pay at
+// [r * kTile + threadIdx.x], r < k (block keys >= 0, kInt32Max = invalid).
 //
-// Sums are integer atomics in shared memory: integer addition is order
-// free, so the result is the same on every run.
-static __device__ unsigned tile_accumulate(TileSmem s, int k, int nb, int tile,
-                                    float dscale, int* pkeys, float* psd,
-                                    float* pw) {
+// tile_block_list: the list of the nb smallest distinct valid block keys,
+// ascending and kInt32Max-padded, in s.list (nb rounds of "smallest key
+// above the last one"; visible to the whole CTA on return).
+static __device__ void tile_block_list(TileSmem s, int k, int nb) {
   const int tid = threadIdx.x;
-
-  // ---- block list: nb rounds of "smallest key above the last one" ----
   int prev = -1;
   int r = 0;
   for (; r < nb; ++r) {
@@ -136,13 +131,15 @@ static __device__ unsigned tile_accumulate(TileSmem s, int k, int nb, int tile,
   }
   for (int i = r + 1 + tid; i < nb; i += kTile) s.list[i] = kInt32Max;
   __syncthreads();
-  for (int i = tid; i < nb; i += kTile) {
-    pkeys[(size_t)tile * nb + i] = s.list[i];
-  }
+}
+
+// tile_ranks: overwrites this thread's keys with their rank in s.list, or
+// -1 where the sample is invalid or not covered (key beyond the list's
+// last entry); returns the bit mask over r of the valid uncovered samples.
+static __device__ unsigned tile_ranks(TileSmem s, int k, int nb) {
+  const int tid = threadIdx.x;
   // covered <=> key among the list <=> key <= the list's last entry
   const int last = s.list[nb - 1];
-
-  // ---- ranks (overwrite the keys: -1 = not accumulated) ----
   unsigned ovf = 0;
   for (int j = 0; j < k; ++j) {
     const int key = s.key[j * kTile + tid];
@@ -161,8 +158,19 @@ static __device__ unsigned tile_accumulate(TileSmem s, int k, int nb, int tile,
     }
     s.key[j * kTile + tid] = rank;
   }
+  return ovf;
+}
 
-  // ---- accumulate, one slab of kSlab list ranks at a time ----
+// tile_slab_accumulate: the tile's partial rows psd/pw (nb x 512, zero
+// where nothing landed) from the ranks in s.key (-1 = skip) and the
+// payloads in s.pay, with sd sums dequantized by dscale.  One slab of kSlab
+// ranks at a time; a slab whose first list entry is kInt32Max is skipped.
+// Sums are integer atomics in shared memory: integer addition is order
+// free, so the result is the same on every run.
+static __device__ void tile_slab_accumulate(TileSmem s, int k, int nb,
+                                            int tile, float dscale,
+                                            float* psd, float* pw) {
+  const int tid = threadIdx.x;
   const int nslab = (nb + kSlab - 1) / kSlab;
   for (int sl = 0; sl < nslab; ++sl) {
     const int r0 = sl * kSlab;
@@ -193,6 +201,21 @@ static __device__ unsigned tile_accumulate(TileSmem s, int k, int nb, int tile,
     }
     __syncthreads();
   }
+}
+
+// The block list, coverage rule, ranks and partial rows of one tile: writes
+// the list to pkeys and the partial rows to psd/pw, and returns, for this
+// thread's column, the bit mask over r of the valid samples that are NOT
+// covered.
+static __device__ unsigned tile_accumulate(TileSmem s, int k, int nb, int tile,
+                                           float dscale, int* pkeys,
+                                           float* psd, float* pw) {
+  tile_block_list(s, k, nb);
+  for (int i = threadIdx.x; i < nb; i += kTile) {
+    pkeys[(size_t)tile * nb + i] = s.list[i];
+  }
+  const unsigned ovf = tile_ranks(s, k, nb);
+  tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw);
   return ovf;
 }
 

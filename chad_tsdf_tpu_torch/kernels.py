@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written Hopper kernels.
 
-The CUDA sources live in ``csrc/`` beside this file.  On first use they are
-compiled by ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+The CUDA sources live in ``csrc/`` beside this file.  On first use each
+``.cu`` file is compiled by its own ``nvcc`` for ``sm_90a`` (all started
+together), the objects are linked into one shared library with a plain C
 interface, loaded with ``ctypes``, and cached in ``_build/`` (which git
 ignores) under a name that hashes the sources and flags, so an edited
 source is rebuilt.  Nothing is compiled at import time: the CPU tests
@@ -17,6 +18,10 @@ Kernels and the TPU kernels they replace (``chad_tsdf_tpu/ops/...``):
 * K2 ``estimate_normals``     <- normals_pallas.py:estimate_normals_pallas
 * K3 ``merge_partials``       <- tile_accum.py:merge_partials
 * K4 ``tile_partials``        <- tile_accum.py:tile_partials
+* K5 ``accumulate_segments``  <- accumulate.py:accumulate_pallas
+* M1 ``micro_stagea_phases``  <- scripts/micro_stagea_phases.py:build
+* M2 ``micro_tile_accum``     <- scripts/micro_tile_accum.py:run
+* M3 ``micro_mxu8``           <- scripts/micro_mxu8.py:build
 """
 
 from __future__ import annotations
@@ -37,13 +42,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # -fmad=false: no multiply-add contraction, so K1's DDA and K2's fit are the
 # same rounded f32 operations as their plain PyTorch versions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
-
-# launches per kernel since the last reset_launches(); a wrapper adds one
-# right after its kernel launched without error, and nowhere else
-LAUNCHES = {"fused_tile_partials": 0, "estimate_normals": 0,
-            "merge_partials": 0, "tile_partials": 0}
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,7 +54,15 @@ _SIGNATURES = {
     "estimate_normals": [_P] * 6 + [_I] * 2 + [_F] + [_P] * 3,
     "merge_partials": [_P] * 10 + [_I],
     "tile_partials": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 4,
+    "accumulate_segments": [_P] * 6 + [_I] * 2 + [_F],
+    "micro_stagea_phases": [_P] * 3 + [_I] * 4 + [_F] * 2 + [_P] * 3,
+    "micro_tile_accum": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 3,
+    "micro_mxu8": [_P] * 4 + [_I] * 4 + [_P] * 2,
 }
+
+# launches per kernel since the last reset_launches(); a wrapper adds one
+# right after its kernel launched without error, and nowhere else
+LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -84,13 +91,39 @@ def _sources() -> list[str]:
                   if f.endswith((".cu", ".cuh")))
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; return their joined output, or raise with
+    it if any failed.  Every process is waited for (or killed) here."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs, failed = [], []
+    try:
+        for c, p in zip(cmds, procs):
+            out, _ = p.communicate(timeout=900)
+            outs.append(out)
+            if p.returncode != 0:
+                failed.append(f"{' '.join(c)} -> {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    text = "".join(outs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}\n{text}")
+    return text
+
+
 def _build() -> str:
-    """Compile csrc/*.cu into _build/ (once per source hash); returns the
-    library path and keeps the compiler's resource report in BUILD_LOG."""
+    """Compile csrc/*.cu into _build/ (once per source hash), one nvcc per
+    source in parallel, then link; returns the library path and keeps the
+    compiler's resource report in BUILD_LOG."""
     global BUILD_LOG
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
+        h.update(os.path.basename(s).encode())
         with open(s, "rb") as fh:
             h.update(fh.read())
     tag = h.hexdigest()[:16]
@@ -98,17 +131,23 @@ def _build() -> str:
     lib = os.path.join(BUILD_DIR, f"libchad_kernels_{tag}.so")
     log = os.path.join(BUILD_DIR, f"build_{tag}.log")
     if not os.path.exists(lib):
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        with open(log, "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
+        nvcc = _nvcc()
+        tmp = f"{lib}.{os.getpid()}"
+        cus = [s for s in srcs if s.endswith(".cu")]
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                    for o, s in zip(objs, cus)]
+        try:
+            text = _run_all(compiles)
+            text += _run_all([[nvcc, "-shared", "-o", f"{tmp}.tmp",
+                               *objs]])
+            with open(log, "w") as fh:
+                fh.write(text)
+            os.replace(f"{tmp}.tmp", lib)
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
     with open(log) as fh:
         BUILD_LOG = fh.read()
     return lib

@@ -8,31 +8,44 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``chad_tsdf_tpu_torch/csrc`` and
 runs, failing with a non-zero exit on the first error:
 
-1. the card's name and power limit; the kernel build;
-2. each kernel (K1 fused integrate, K2 normals, K3 tile merge, K4 tile
-   partials) against its plain PyTorch version on the card, on the inputs
-   the 1M-point sphere gives it, with both times;
+1. the card's name and power limit; the kernel build (one nvcc per
+   source, all at once);
+2. each kernel against its plain PyTorch version on the card, with both
+   times: K1 fused integrate, K2 normals, K3 tile merge and K4 tile
+   partials on the inputs the 1M-point sphere gives them; K5 segment
+   accumulate on the ``pallas`` backend's tables of the 1M-point sphere
+   and of a dense-voxel cloud (64 voxels x 16,384 points); the
+   microbenchmark kernels M1 (every mode), M2 and M3 (both precisions) at a
+   reduced size;
 3. the main path: ``TSDFMap(0.05, 0.1, device="cuda")`` at the default
    MapConfig inserts the 2^20-point r = 5 m sphere (seed 420, bench.py's
-   cloud) and saves a PLY, whose vertices must sit on the sphere;
-4. a sparse 2048-point insert whose tiles overflow, so the fallback (K4)
-   runs; its pool is held against the scatter backend;
-5. determinism: two fresh maps, same insert, bit-equal pools (dense and
-   sparse);
+   cloud) and saves a PLY, whose vertices must sit on the sphere; then the
+   ``pallas`` and ``tile`` backends insert the same cloud and must give the
+   fused map's blocks, weights and signed distances;
+4. a sparse 2048-point insert whose tiles overflow, so the fallback (K4,
+   then K5) runs; its pool is held against the scatter backend, and the
+   scatter form is not reached on the fallback;
+5. determinism: two fresh maps, same insert, bit-equal pools (dense,
+   sparse, and dense under ``pallas``);
 6. the golden workload (tests/golden/sphere_r2_seed420.npz) through the
-   fused path.
+   fused path;
+7. the microbenchmarks' own timing runs at their full sizes
+   (``chad_tsdf_tpu_torch.scripts``), then each held once more against its
+   plain version at that size.
 
 Launch counts are reset just before the dense inserts of phase 3 and read
 right after them: K1, K2 and K3 must have launched there and K4 not.  They
-are reset again just before phase 4's sparse insert, where K4 must launch.
+are reset again just before phase 4's sparse insert, where K4 and K5 must
+launch, and just before phase 7's timing runs, where M1-M3 must launch.
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
-for K4.  The last line is ``{"ok": true, "device": {...}}``.  The script
-imports no JAX.
+for K4-K5, phase 7 for M1-M3.  The last line is
+``{"ok": true, "device": {...}}``.  The script imports no JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -58,7 +71,18 @@ KERNELS = {
                        "chad_tsdf_tpu/ops/tile_accum.py:204"),
     "tile_partials": ("chad_tsdf_tpu_torch/csrc/tile_accum.cu",
                       "chad_tsdf_tpu/ops/tile_accum.py:116"),
+    "accumulate_segments": ("chad_tsdf_tpu_torch/csrc/accumulate.cu",
+                            "chad_tsdf_tpu/ops/accumulate.py:198"),
+    "micro_stagea_phases": ("chad_tsdf_tpu_torch/csrc/micro.cu",
+                            "scripts/micro_stagea_phases.py:162"),
+    "micro_tile_accum": ("chad_tsdf_tpu_torch/csrc/micro.cu",
+                         "scripts/micro_tile_accum.py:71"),
+    "micro_mxu8": ("chad_tsdf_tpu_torch/csrc/micro.cu",
+                   "scripts/micro_mxu8.py:121"),
 }
+# reduced sizes of phase 2's microbenchmark checks
+MICRO_CHECK_N = 1 << 16        # M1 / M3 points (64 tiles)
+MICRO_CHECK_TILES = 64         # M2 tiles
 
 
 # The golden was written by the JAX package under jit on the CPU, whose
@@ -228,10 +252,147 @@ def check_kernels(cfg, results):
     del state, pools_k, pools_p, k1, directory, plan
 
 
+def k5_inputs(pts_np, cfg, dev):
+    """K5's inputs on the ``pallas`` backend for one insert of ``pts_np``
+    (scanned from the origin) into a fresh map: (state, member tables,
+    payload, stats)."""
+    from chad_tsdf_tpu_torch.core import integrate
+    from chad_tsdf_tpu_torch.core.state import (create_state,
+                                                origin_blocks_for_position)
+    state = create_state(cfg, origin_blocks_for_position(np.zeros(3), cfg),
+                         dev)
+    pts = torch.from_numpy(pts_np).to(dev)
+    pos = torch.zeros(3, dtype=torch.float32, device=dev)
+    batch = integrate.sort_samples(integrate.compute_samples(
+        pts, pts.shape[0], pos, state.origin_blocks, cfg))
+    n_valid = (batch.bkey != 2**31 - 1).sum(dtype=torch.int32)
+    _, tables, t_count, _ = integrate.plan_segments(state, batch.bkey,
+                                                    n_valid, cfg)
+    stats = {"samples": int(n_valid), "members": int(t_count),
+             "kept_samples": int(tables[1].sum()),
+             "max_segment": int(tables[1].max())}
+    return state, tables, batch.payload, stats
+
+
+def check_k5(cfg, results):
+    """Phase 2, K5 on the pallas backend's tables of the 1M-point sphere and
+    of a dense-voxel cloud (64 voxels x 16,384 points): two passes (the
+    second adds onto live rows); weights equal, sd within SD_TOL per
+    weight."""
+    from chad_tsdf_tpu_torch.ops import accumulate
+    from chad_tsdf_tpu_torch.profile_insert import voxel_clusters
+
+    dev = torch.device("cuda")
+    cfg_p = dataclasses.replace(cfg, accumulate_impl="pallas")
+    out = {}
+    for name, pts in (("sphere", sphere(N_DENSE, 5.0, 420)),
+                      ("dense voxels", voxel_clusters(N_DENSE, 16384,
+                                                      cfg.sdf_res, 5))):
+        state, tables, payload, stats = k5_inputs(pts, cfg_p, dev)
+        args = (*tables, payload, cfg.sdf_trunc)
+        pools_k = (state.pool_sd, state.pool_w)
+        pools_p = (state.pool_sd.clone(), state.pool_w.clone())
+        for _ in range(2):
+            accumulate.accumulate_segments(*pools_k, *args)
+            accumulate.accumulate_segments_plain(*pools_p, *args)
+        require(torch.equal(pools_k[1], pools_p[1]),
+                f"K5 weights differ ({name})")
+        require(int(pools_k[1].double().sum()) == 2 * stats["kept_samples"],
+                f"K5 lost weight ({name})")
+        err = sd_err_per_weight(pools_k[0], pools_p[0], pools_p[1])
+        require(err < SD_TOL, f"K5 sd error {err} ({name})")
+        r = dict(stats, sd_err_per_weight=err,
+                 max_abs_err=float((pools_k[0] - pools_p[0]).abs().max()),
+                 ms=cuda_ms(lambda: accumulate.accumulate_segments(
+                     *pools_k, *args)),
+                 plain_ms=cuda_ms(lambda: accumulate.accumulate_segments_plain(
+                     *pools_p, *args), reps=3))
+        log(f"K5 accumulate_segments ({name}): {r}")
+        out[name] = r
+        del state, pools_k, pools_p, tables, payload
+        torch.cuda.empty_cache()
+    results["accumulate_segments"] = dict(
+        out["sphere"], max_abs_err=max(r["max_abs_err"]
+                                       for r in out.values()))
+
+
+def micro_inputs(mod, *size):
+    return [torch.from_numpy(a).to("cuda") for a in mod.inputs(*size)]
+
+
+def check_micro():
+    """Phase 2, M1 (every mode), M2 and M3 (both precisions) against their
+    plain versions at a reduced size; returns each one's largest sd
+    error."""
+    from chad_tsdf_tpu_torch.scripts import (micro_mxu8, micro_stagea_phases,
+                                             micro_tile_accum)
+    errs = {
+        "micro_stagea_phases": micro_stagea_phases.check(
+            *micro_inputs(micro_stagea_phases, MICRO_CHECK_N),
+            48)["max_abs_err"],
+        "micro_tile_accum": micro_tile_accum.check(
+            *micro_inputs(micro_tile_accum, MICRO_CHECK_TILES))["max_abs_err"],
+        "micro_mxu8": micro_mxu8.check(
+            *micro_inputs(micro_mxu8, MICRO_CHECK_N))["max_abs_err"]}
+    log(f"M1-M3 at a reduced size ({MICRO_CHECK_N} points, "
+        f"{MICRO_CHECK_TILES} M2 tiles): every mode and precision equals its "
+        f"plain version; max sd err {errs}")
+    return errs
+
+
+def run_micro(errs, results):
+    """Phase 7: the microbenchmarks' timing runs at full size (launch counts
+    read right after), then each held once more against its plain version
+    at that size, with the plain version's time."""
+    from chad_tsdf_tpu_torch import kernels
+    from chad_tsdf_tpu_torch.scripts import (micro_mxu8, micro_stagea_phases,
+                                             micro_tile_accum)
+    kernels.reset_launches()
+    b1 = micro_stagea_phases.benchmark(with_check=False)
+    b2 = micro_tile_accum.benchmark(with_check=False)
+    b3 = micro_mxu8.benchmark(with_check=False)
+    launches = dict(kernels.LAUNCHES)
+    c1 = micro_stagea_phases.check(*micro_inputs(micro_stagea_phases), 48,
+                                   time_plain=True)
+    c2 = micro_tile_accum.check(*micro_inputs(micro_tile_accum),
+                                time_plain=True)
+    c3 = micro_mxu8.check(*micro_inputs(micro_mxu8), time_plain=True)
+    for name, ms, plain_ms, err in (
+            ("micro_stagea_phases", b1["ms"]["full_nb48"],
+             c1["plain_ms"]["full"], c1["max_abs_err"]),
+            ("micro_tile_accum", b2["ms"], c2["plain_ms"], c2["max_abs_err"]),
+            ("micro_mxu8", b3["ms"]["bf16"], c3["plain_ms"],
+             c3["max_abs_err"])):
+        require(launches[name] > 0, f"{name} launched 0 times in its run")
+        results[name] = {"max_abs_err": max(err, errs[name]), "ms": ms,
+                         "plain_ms": plain_ms}
+    log(f"phase 7 microbenchmarks: M1 ms {b1['ms']}; M1 plain ms "
+        f"{c1['plain_ms']}; M2 {b2}; M2 plain ms {c2['plain_ms']}; M3 ms "
+        f"{b3['ms']}; M3 plain ms {c3['plain_ms']}; launches {launches}")
+    return launches
+
+
 def pool_of(m):
     """(dir_keys, pool_sd, pool_w) of a map's active state."""
     s = m.state
     return s.dir_keys, s.pool_sd, s.pool_w
+
+
+def same_map(a, b, what):
+    """Require equal directories and, through each map's slots, equal
+    weights and sd within SD_TOL per weight; returns the sd error."""
+    require(torch.equal(a.state.dir_keys, b.state.dir_keys),
+            f"{what}: dir_keys differ")
+    nb = int(b.state.n_blocks)
+    require(int(a.state.n_blocks) == nb, f"{what}: n_blocks differ")
+    sl_a = a.state.dir_slots[:nb].long()
+    sl_b = b.state.dir_slots[:nb].long()
+    require(torch.equal(a.state.pool_w[sl_a], b.state.pool_w[sl_b]),
+            f"{what}: weights differ")
+    err = sd_err_per_weight(a.state.pool_sd[sl_a], b.state.pool_sd[sl_b],
+                            b.state.pool_w[sl_b])
+    require(err < SD_TOL, f"{what}: sd error {err}")
+    return err
 
 
 def main() -> int:
@@ -266,6 +427,9 @@ def main() -> int:
     cfg = MapConfig()
     results = {}
     check_kernels(cfg, results)
+    torch.cuda.empty_cache()
+    check_k5(cfg, results)
+    micro_errs = check_micro()
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path ----
@@ -316,40 +480,72 @@ def main() -> int:
         f"{m.last_metrics['sub_fin_ms']:.1f} ms, mesh "
         f"{m.last_metrics['mesh_ms']:.1f} ms); {mesh.n_vertices} vertices, "
         f"{mesh.n_faces} faces, RMSE to the r=5 sphere {rmse:.6f} m")
+
+    # the pallas and tile backends: same cloud, same number of inserts
+    for impl in ("pallas", "tile"):
+        kernels.reset_launches()
+        mb = TSDFMap(0.05, 0.1, config=dataclasses.replace(
+            cfg, accumulate_impl=impl), device="cuda")
+        mb.insert(dense, origin0)
+        torch.cuda.synchronize()
+        impl_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mb.insert(dense, origin0)
+            torch.cuda.synchronize()
+            impl_ms.append((time.perf_counter() - t0) * 1e3)
+        impl_launches = dict(kernels.LAUNCHES)
+        needed = (("accumulate_segments",) if impl == "pallas" else
+                  ("tile_partials", "merge_partials"))
+        for name in needed:
+            require(impl_launches[name] > 0,
+                    f"{name} launched 0 times on the {impl} backend")
+        err = same_map(mb, m, f"dense {impl} vs fused")
+        log(f"phase 3 {impl} insert: {statistics.median(impl_ms):.3f} ms "
+            f"median of {[round(x, 3) for x in impl_ms]} (fused "
+            f"{ins:.3f} ms); dir_keys and weights equal to the fused map's, "
+            f"sd err/weight {err:.3e}; tile_overflow "
+            f"{int(mb.state.tile_overflow)}; launches {impl_launches}")
+        del mb
+        torch.cuda.empty_cache()
     del m
     torch.cuda.empty_cache()
 
-    # ---- phase 4: sparse insert -> fallback through K4 ----
+    # ---- phase 4: sparse insert -> fallback through K4 and K5 ----
+    from chad_tsdf_tpu_torch.ops import accumulate
     sparse_cfg = MapConfig(max_points=2048)
     sparse = sphere(2048, 5.0, 7)
     ms_ = TSDFMap(0.05, 0.1, config=sparse_cfg, device="cuda")
+    scatter = accumulate.accumulate_xla
+
+    def no_scatter(*args, **kw):
+        raise AssertionError("the fallback reached the scatter form")
+
     kernels.reset_launches()
-    ms_.insert(sparse, origin0)
+    accumulate.accumulate_xla = no_scatter
+    try:
+        ms_.insert(sparse, origin0)
+    finally:
+        accumulate.accumulate_xla = scatter
     sparse_launches = dict(kernels.LAUNCHES)
-    require(sparse_launches["tile_partials"] > 0,
-            "tile_partials launched 0 times on the sparse insert")
+    for name in ("tile_partials", "accumulate_segments"):
+        require(sparse_launches[name] > 0,
+                f"{name} launched 0 times on the sparse insert")
     require(int(ms_.state.tile_overflow) > 0, "sparse insert did not fall back")
-    import dataclasses
     mx = TSDFMap(0.05, 0.1, config=dataclasses.replace(
         sparse_cfg, accumulate_impl="xla"), device="cuda")
     mx.insert(sparse, origin0)
-    require(torch.equal(ms_.state.dir_keys, mx.state.dir_keys),
-            "sparse dir_keys differ from the scatter backend")
-    nb = int(mx.state.n_blocks)
-    sl_f = ms_.state.dir_slots[:nb].long()
-    sl_x = mx.state.dir_slots[:nb].long()
-    require(torch.equal(ms_.state.pool_w[sl_f], mx.state.pool_w[sl_x]),
-            "sparse weights differ from the scatter backend")
-    err = sd_err_per_weight(ms_.state.pool_sd[sl_f], mx.state.pool_sd[sl_x],
-                            mx.state.pool_w[sl_x])
-    require(err < SD_TOL, f"sparse sd error {err}")
+    err = same_map(ms_, mx, "sparse fused vs the scatter backend")
     log(f"phase 4 sparse insert: tile_overflow "
-        f"{int(ms_.state.tile_overflow)}, n_blocks {nb}, sd err/weight vs "
-        f"scatter backend {err:.3e}; launches {sparse_launches}")
+        f"{int(ms_.state.tile_overflow)}, n_blocks {int(mx.state.n_blocks)}, "
+        f"sd err/weight vs scatter backend {err:.3e}; launches "
+        f"{sparse_launches}")
 
     # ---- phase 5: determinism ----
     for name, pts, c in (("dense", dense, cfg), ("sparse", sparse,
-                                                  sparse_cfg)):
+                                                  sparse_cfg),
+                         ("dense pallas", dense, dataclasses.replace(
+                             cfg, accumulate_impl="pallas"))):
         a = TSDFMap(0.05, 0.1, config=c, device="cuda")
         b = TSDFMap(0.05, 0.1, config=c, device="cuda")
         a.insert(pts, origin0)
@@ -380,9 +576,17 @@ def main() -> int:
         f"{g['codes'].shape[0]}, {n_diff} differ; max sd diff on the common "
         f"codes {sd_diff:.3e} (one step {step:.3e})")
 
+    # ---- phase 7: microbenchmarks at full size ----
+    micro_launches = run_micro(micro_errs, results)
+
     # ---- result ----
     launches = dict(dense_launches,
-                    tile_partials=sparse_launches["tile_partials"])
+                    tile_partials=sparse_launches["tile_partials"],
+                    accumulate_segments=sparse_launches[
+                        "accumulate_segments"],
+                    **{k: micro_launches[k] for k in (
+                        "micro_stagea_phases", "micro_tile_accum",
+                        "micro_mxu8")})
     out = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
