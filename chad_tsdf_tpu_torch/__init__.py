@@ -4,16 +4,18 @@ The JAX package ``chad_tsdf_tpu`` is the reference; this package holds the
 same modules under the same names (``ops/``, ``core/``, ``mesh/``), written
 in PyTorch, with the TPU's Pallas kernels replaced by hand-written CUDA
 kernels for Hopper (``csrc/``, built on first use by :mod:`.kernels`).  It
-never imports jax; from the JAX package it uses only the framework-free
-``config.MapConfig``, ``core.dag`` and ``native``.
+imports neither jax nor anything of the JAX package: it keeps its own copies
+of the framework-free host modules (``config.MapConfig``, ``core/dag.py``,
+``native.py`` with ``csrc/chadrt.cpp``).  Its entry points run on the card
+(``device="cuda"``, the default) unless the caller passes ``device="cpu"``.
 
     from chad_tsdf_tpu_torch import TSDFMap
-    m = TSDFMap(sdf_res=0.05, sdf_trunc=0.1, device="cuda")
+    m = TSDFMap(sdf_res=0.05, sdf_trunc=0.1)          # on the card
     m.insert(points, position)       # numpy (N,3), (3,)
     m.save("mesh.ply")
 """
 
-from chad_tsdf_tpu.config import MapConfig
+from .config import MapConfig
 
 __all__ = ["TSDFMap", "MapConfig"]
 

@@ -49,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
+from ..config import MapConfig
 
 from ..ops import (accumulate, dda, fused_integrate, morton, normals,
                    normals_cuda, segops, tile_accum)

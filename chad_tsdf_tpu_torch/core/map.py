@@ -11,9 +11,10 @@ include/chad/tsdf.hpp:21-171, src/chad/tsdf.cpp:26-86):
   (tsdf.cpp:76-86).  As in the JAX package, save() is idempotent and
   meshes every submap unless ``mesh_first_submap_only``.
 
-The device is explicit (``device="cpu"`` or ``"cuda"``) and never chosen
-by probing.  ``accumulate_impl`` may be ``auto``, ``fused``, ``tile``,
-``pallas`` or ``xla`` (core/integrate.py).  Not ported yet (ROADMAP.md):
+The map runs on the card (``device="cuda"``, the default) unless the
+caller passes ``device="cpu"``; without a card the default raises rather
+than falling back to the CPU.  ``accumulate_impl`` may be ``auto``,
+``fused``, ``tile``, ``pallas`` or ``xla`` (core/integrate.py).  Not ported yet (ROADMAP.md):
 the sparse ``seg`` and ``sample_tile`` backends, packed ingest, carving,
 deferred rotation, device marching cubes, the ``.grid`` dump,
 raycast/merge/leaf_arrays/stats and loop closure; the options that select
@@ -29,13 +30,11 @@ import warnings
 import numpy as np
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
-from chad_tsdf_tpu.core import dag
-
+from ..config import MapConfig
 from ..mesh import marching_cubes, write_ply
 from ..ops import codec
-from . import integrate, submap as submap_mod
-from .state import create_state, origin_blocks_for_position
+from . import dag, integrate, submap as submap_mod
+from .state import create_state, origin_blocks_for_position, resolve_device
 
 
 class LazyMetrics(collections.abc.MutableMapping):
@@ -105,7 +104,7 @@ def _check_ported(config: MapConfig) -> None:
 
 class TSDFMap:
     def __init__(self, sdf_res: float = 0.05, sdf_trunc: float = 0.1,
-                 config: MapConfig | None = None, device="cpu"):
+                 config: MapConfig | None = None, device="cuda"):
         if config is None:
             config = MapConfig(sdf_res=sdf_res, sdf_trunc=sdf_trunc)
         elif (sdf_res, sdf_trunc) != (config.sdf_res, config.sdf_trunc):
@@ -114,7 +113,7 @@ class TSDFMap:
                                          sdf_trunc=sdf_trunc)
         _check_ported(config)
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.levels = dag.NodeLevels()
         self.submaps: list[submap_mod.Submap] = []
         self.state = None

@@ -11,7 +11,8 @@ JAX package, the port keeps a dense block pool instead:
 * ``origin_blocks``: world block coordinate of local block (0,0,0).
 
 Overflow of any static capacity increments a counter, never silently.  All
-fields live on one device; the insert functions update the pool in place.
+fields live on one device, the card unless the caller passes
+``device="cpu"``; the insert functions update the pool in place.
 :func:`state_from_numpy` / :func:`state_to_numpy` carry a state across
 packages as numpy arrays named like the JAX state's fields, so a map
 built by the JAX package can be loaded here and keep integrating.
@@ -25,7 +26,7 @@ import warnings
 import numpy as np
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
+from ..config import MapConfig
 
 INT32_MAX = 2**31 - 1
 
@@ -52,9 +53,22 @@ class ActiveMapState:
 _FIELDS = tuple(f.name for f in dataclasses.fields(ActiveMapState))
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  The port runs on the card unless
+    the caller asks for the CPU: a CUDA device on a machine without one
+    raises, and nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "false; pass device='cpu' to run the port on the CPU")
+    return dev
+
+
 def create_state(config: MapConfig, origin_blocks=None,
-                 device="cpu") -> ActiveMapState:
+                 device="cuda") -> ActiveMapState:
     cb = config.block_capacity
+    device = resolve_device(device)
     if origin_blocks is None:
         origin_blocks = np.zeros((3,), np.int32)
 
@@ -83,13 +97,14 @@ def state_to_numpy(state: ActiveMapState) -> dict:
     return {name: getattr(state, name).cpu().numpy() for name in _FIELDS}
 
 
-def state_from_numpy(d, device="cpu") -> ActiveMapState:
+def state_from_numpy(d, device="cuda") -> ActiveMapState:
     """Inverse of :func:`state_to_numpy`.  ``d`` maps field names to array
     likes — e.g. ``{f: np.asarray(getattr(jax_state, f)) ...}`` — so a
     state built by the JAX package keeps integrating here."""
     missing = [name for name in _FIELDS if name not in d]
     if missing:
         raise KeyError(f"state fields missing: {missing}")
+    device = resolve_device(device)
     out = {}
     for name in _FIELDS:
         a = np.asarray(d[name])

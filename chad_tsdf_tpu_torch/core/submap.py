@@ -10,7 +10,7 @@ include/chad/detail/submap.hpp:10-106):
   and compaction of the non-empty clusters into one buffer;
 * host: world Morton codes per cluster, then 20 rounds of
   group-by-parent-prefix + hash-consed adds into the shared
-  ``chad_tsdf_tpu.core.dag.NodeLevels`` (numpy, or the native C++ runtime).
+  ``core/dag.py`` ``NodeLevels`` (numpy, or the native C++ runtime).
 
 In this port a rotation finalizes synchronously: the JAX package's
 deferred rotation (``start_finalize`` / ``PendingSubmap``) is not ported
@@ -26,10 +26,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
-from chad_tsdf_tpu.core.dag import MAX_DEPTH, NodeLevels
-
+from ..config import MapConfig
 from ..ops import codec, morton
+from .dag import MAX_DEPTH, NodeLevels
 from .state import INT32_MAX, ActiveMapState, warn_on_overflow
 
 

@@ -8,6 +8,13 @@
 // ranks, slab accumulate) are also separate functions, which the
 // microbenchmark kernels of micro.cu time one at a time.
 //
+// A tile is 1024 sample columns on a CTA of 512 threads (two adjacent
+// columns each).  The list is built per warp with warp reductions and
+// merged once (two CTA barriers, not nb rounds of three); only live partial
+// rows are written, 16 bytes a thread; and the keys' shared memory holds
+// the accumulate slab once ranks are packed into the payloads, so a CTA
+// needs 107 KiB at K = 10, nb = 48 and two fit on an SM.
+//
 // It replaces the list/rank/accumulate stages of the TPU kernels
 // chad_tsdf_tpu/ops/tile_accum.py:_tile_kernel and
 // chad_tsdf_tpu/ops/fused_integrate.py:_kernel (:175-325).
@@ -18,10 +25,17 @@
 
 namespace chad {
 
-constexpr int kTile = 1024;        // points per tile = threads per CTA
+constexpr int kTile = 1024;        // points (sample columns) per tile
+constexpr int kTileThreads = 512;  // threads per tile CTA
+constexpr int kCols = kTile / kTileThreads;   // adjacent columns per thread
+constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kInt32Max = 0x7fffffff;
 constexpr int kSlab = 16;          // list ranks accumulated per pass
 constexpr int kRowLen = 512;       // voxels per 8x8x8 block
+constexpr int kRegRows = 12;       // rows the list phase holds in registers
+constexpr int kMaxNb = 127;        // the rank field of a packed sample: 7 bits
+constexpr int kSkip = -1;          // packed sample that no rank takes
+static_assert(kCols == 2, "the tile phases load column pairs as int2");
 
 __device__ __forceinline__ int spread3_10(int x) {
   x &= 0x3FF;
@@ -66,14 +80,15 @@ __device__ __forceinline__ int pack_payload(int okey, int q) {
   return (okey << 16) | (q & 0xFFFF);
 }
 
-// Minimum over the CTA (blockDim.x == kTile); every thread gets the result.
+// Minimum over the CTA; every thread gets the result.
 __device__ __forceinline__ int block_min(int v, int* s_red) {
   v = __reduce_min_sync(0xffffffffu, v);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
   if (lane == 0) s_red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    int w = s_red[lane];
+    int w = lane < warps ? s_red[lane] : kInt32Max;
     w = __reduce_min_sync(0xffffffffu, w);
     if (lane == 0) s_red[32] = w;
   }
@@ -83,140 +98,264 @@ __device__ __forceinline__ int block_min(int v, int* s_red) {
   return out;
 }
 
-// Dynamic shared memory of tile_accumulate's callers, in 32-bit words.
+// Dynamic shared memory of tile_accumulate's callers, in 32-bit words: the
+// keys, later overlaid by the accumulate slab; the payloads; the warp lists;
+// the list; scratch.  k = 10, nb = 48: 27,488 words (107 KiB), so two CTAs
+// fit on an SM.
 __host__ __device__ inline int tile_smem_words(int k, int nb) {
-  return 2 * k * kTile + 2 * kSlab * kRowLen + nb + 40;
+  const int keys = k * kTile, slab = 2 * kSlab * kRowLen;
+  return (keys > slab ? keys : slab) + keys + kTileWarps * nb + nb + 48;
 }
 
 struct TileSmem {
   int* key;    // [k * kTile] block key per sample, kInt32Max = invalid
-  int* pay;    // [k * kTile] pack_payload(offset, q)
-  int* accq;   // [kSlab * kRowLen] quantized sd sums of one slab
-  int* accw;   // [kSlab * kRowLen] sample counts of one slab
+  int* accq;   // [kSlab * kRowLen] quantized sd sums of a slab; aliases key
+  int* accw;   // [kSlab * kRowLen] sample counts of a slab, after accq
+  int* pay;    // [k * kTile] pack_payload(offset, q), then with its rank
+  int* wl;     // [kTileWarps * nb] each warp's list
   int* list;   // [nb] the tile's block list, ascending
-  int* red;    // [40] reduction scratch and counters
+  int* red;    // [48] reduction scratch and counters
 };
 
 __device__ __forceinline__ TileSmem tile_smem(int* base, int k, int nb) {
+  const int keys = k * kTile, slab = 2 * kSlab * kRowLen;
   TileSmem s;
   s.key = base;
-  s.pay = s.key + k * kTile;
-  s.accq = s.pay + k * kTile;
-  s.accw = s.accq + kSlab * kRowLen;
-  s.list = s.accw + kSlab * kRowLen;
+  s.accq = base;
+  s.accw = base + kSlab * kRowLen;
+  s.pay = base + (keys > slab ? keys : slab);
+  s.wl = s.pay + keys;
+  s.list = s.wl + kTileWarps * nb;
   s.red = s.list + nb;
   return s;
 }
 
+// Sample word of the accumulate: rank (7 bits) << 25 | pack_payload's 25
+// bits; kSkip (rank field 127) is taken by no rank.  (The rank replaces
+// the key, so the keys' shared memory can hold the accumulate slab.)
+__device__ __forceinline__ int pack_rank(int rank, int pay) {
+  return (int)(((unsigned)rank << 25) | ((unsigned)pay & 0x1FFFFFFu));
+}
+
+// This thread's first sample column; its columns are tile_col0() + c,
+// c < kCols.
+__device__ __forceinline__ int tile_col0() { return kCols * threadIdx.x; }
+
+// Per-column bit masks over the sample rows r.
+struct ColMask {
+  unsigned m[kCols];
+};
+
 // The phases of a tile, each over the samples in s.key / s.pay at
-// [r * kTile + threadIdx.x], r < k (block keys >= 0, kInt32Max = invalid).
+// [r * kTile + col], r < k, for this thread's columns (block keys >= 0,
+// kInt32Max = invalid).
 //
-// tile_block_list: the list of the nb smallest distinct valid block keys,
-// ascending and kInt32Max-padded, in s.list (nb rounds of "smallest key
-// above the last one"; visible to the whole CTA on return).
-static __device__ void tile_block_list(TileSmem s, int k, int nb) {
-  const int tid = threadIdx.x;
+// warp_block_list: this warp's ascending distinct valid keys, at most nb,
+// into its s.wl row (kInt32Max-terminated when shorter).  Rounds of "the
+// smallest key above the last one" over the warp's 64 columns, with a warp
+// reduction and no CTA barrier.
+static __device__ void warp_block_list(TileSmem s, int k, int nb) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = tile_col0();
+  int* wl = s.wl + warp * nb;
   int prev = -1;
-  int r = 0;
-  for (; r < nb; ++r) {
-    int local = kInt32Max;
-    for (int j = 0; j < k; ++j) {
-      const int key = s.key[j * kTile + tid];
-      if (key > prev && key < local) local = key;
+  if (k <= kRegRows) {
+    int key[kRegRows][kCols];
+#pragma unroll
+    for (int r = 0; r < kRegRows; ++r) {
+      const int2 v = r < k
+          ? *reinterpret_cast<const int2*>(&s.key[r * kTile + col])
+          : make_int2(kInt32Max, kInt32Max);
+      key[r][0] = v.x;
+      key[r][1] = v.y;
     }
-    const int m = block_min(local, s.red);
-    if (tid == 0) s.list[r] = m;
-    if (m == kInt32Max) break;   // uniform: every thread holds the same m
-    prev = m;
+    for (int i = 0; i < nb; ++i) {
+      int local = kInt32Max;
+#pragma unroll
+      for (int r = 0; r < kRegRows; ++r)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int x = key[r][c];
+          if (x > prev && x < local) local = x;
+        }
+      const int m = __reduce_min_sync(0xffffffffu, local);
+      if (lane == 0) wl[i] = m;
+      if (m == kInt32Max) break;       // uniform over the warp
+      prev = m;
+    }
+  } else {
+    for (int i = 0; i < nb; ++i) {
+      int local = kInt32Max;
+      for (int r = 0; r < k; ++r) {
+        const int2 v = *reinterpret_cast<const int2*>(&s.key[r * kTile + col]);
+        if (v.x > prev && v.x < local) local = v.x;
+        if (v.y > prev && v.y < local) local = v.y;
+      }
+      const int m = __reduce_min_sync(0xffffffffu, local);
+      if (lane == 0) wl[i] = m;
+      if (m == kInt32Max) break;
+      prev = m;
+    }
   }
-  for (int i = r + 1 + tid; i < nb; i += kTile) s.list[i] = kInt32Max;
+}
+
+// tile_block_list: the list of the nb smallest distinct valid block keys,
+// ascending and kInt32Max-padded, in s.list (visible to the whole CTA on
+// return).  The warps' lists (each holding its nb smallest) are merged once
+// by warp 0, lane w walking warp w's list: two CTA barriers in all.
+static __device__ void tile_block_list(TileSmem s, int k, int nb) {
+  warp_block_list(s, k, nb);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int* wl = s.wl + lane * nb;
+    int pos = 0;
+    int cand = lane < kTileWarps ? wl[0] : kInt32Max;
+    int i = 0;
+    for (; i < nb; ++i) {
+      const int m = __reduce_min_sync(0xffffffffu, cand);
+      if (lane == 0) s.list[i] = m;
+      if (m == kInt32Max) break;
+      if (cand == m) {
+        ++pos;
+        cand = pos < nb ? wl[pos] : kInt32Max;
+      }
+    }
+    for (int j = i + 1 + lane; j < nb; j += 32) s.list[j] = kInt32Max;
+  }
   __syncthreads();
 }
 
-// tile_ranks: overwrites this thread's keys with their rank in s.list, or
-// -1 where the sample is invalid or not covered (key beyond the list's
-// last entry); returns the bit mask over r of the valid uncovered samples.
-static __device__ unsigned tile_ranks(TileSmem s, int k, int nb) {
-  const int tid = threadIdx.x;
+// Number of live entries of s.list (they form its prefix).
+__device__ __forceinline__ int list_live(const int* list, int nb) {
+  int lo = 0, hi = nb;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (list[mid] != kInt32Max) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// tile_ranks: packs each of this thread's samples with its rank in s.list
+// (pack_rank), or kSkip where the sample is invalid or not covered (key
+// beyond the list's last entry); returns, per column, the bit mask over r
+// of the valid uncovered samples.  A ray's consecutive samples mostly share
+// a block, so the last lookup is reused; a lookup searches the live prefix.
+static __device__ ColMask tile_ranks(TileSmem s, int k, int nb) {
   // covered <=> key among the list <=> key <= the list's last entry
   const int last = s.list[nb - 1];
-  unsigned ovf = 0;
-  for (int j = 0; j < k; ++j) {
-    const int key = s.key[j * kTile + tid];
-    int rank = -1;
-    if (key != kInt32Max) {
-      if (key <= last) {
-        int lo = 0, hi = nb - 1;           // lower_bound in the list
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s.list[mid] < key) lo = mid + 1; else hi = mid;
+  const int live = list_live(s.list, nb);
+  ColMask ovf;
+  int ck = -1, cr = 0;                   // last key looked up, its rank
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    ovf.m[c] = 0;
+    for (int r = 0; r < k; ++r) {
+      const int idx = r * kTile + tile_col0() + c;
+      const int key = s.key[idx];
+      const int pay = s.pay[idx];
+      int packed = kSkip;
+      if (key != kInt32Max) {
+        if (key <= last) {
+          if (key != ck) {
+            int lo = 0, hi = live - 1;       // lower_bound in the list
+            while (lo < hi) {
+              const int mid = (lo + hi) >> 1;
+              if (s.list[mid] < key) lo = mid + 1; else hi = mid;
+            }
+            ck = key;
+            cr = lo;
+          }
+          packed = pack_rank(cr, pay);
+        } else {
+          ovf.m[c] |= 1u << r;
         }
-        rank = lo;
-      } else {
-        ovf |= 1u << j;
       }
+      s.pay[idx] = packed;
     }
-    s.key[j * kTile + tid] = rank;
   }
   return ovf;
 }
 
-// tile_slab_accumulate: the tile's partial rows psd/pw (nb x 512, zero
-// where nothing landed) from the ranks in s.key (-1 = skip) and the
-// payloads in s.pay, with sd sums dequantized by dscale.  One slab of kSlab
-// ranks at a time; a slab whose first list entry is kInt32Max is skipped.
-// Sums are integer atomics in shared memory: integer addition is order
-// free, so the result is the same on every run.
+// tile_slab_accumulate: the tile's partial rows psd/pw (nb x 512) from the
+// packed samples in s.pay, with sd sums dequantized by dscale, one slab of
+// kSlab ranks at a time.  Only the live rows (list entry != kInt32Max, a
+// prefix of the list) are accumulated and written; dead rows of psd/pw are
+// left as they were, and their readers skip them.  With all_rows every
+// row is accumulated and written (the microbenchmarks' fixed ranks).  Sums
+// are 32-bit integer atomics in shared memory, order free, so the result
+// is the same on every run; rows are written 16 bytes a thread.  Starts
+// with a barrier: the slab overlays the keys.
 static __device__ void tile_slab_accumulate(TileSmem s, int k, int nb,
                                             int tile, float dscale,
-                                            float* psd, float* pw) {
+                                            float* psd, float* pw,
+                                            bool all_rows) {
   const int tid = threadIdx.x;
-  const int nslab = (nb + kSlab - 1) / kSlab;
-  for (int sl = 0; sl < nslab; ++sl) {
-    const int r0 = sl * kSlab;
-    const int rows = min(kSlab, nb - r0);
-    const bool live = s.list[r0] != kInt32Max;     // uniform
-    if (live) {
-      for (int i = tid; i < kSlab * kRowLen; i += kTile) {
-        s.accq[i] = 0;
-        s.accw[i] = 0;
-      }
-      __syncthreads();
-      for (int j = 0; j < k; ++j) {
-        const int rank = s.key[j * kTile + tid] - r0;
-        if (rank >= 0 && rank < rows) {
-          const int pay = s.pay[j * kTile + tid];
-          const int off = (pay >> 16) & 0x1FF;
-          const int q = (pay << 16) >> 16;
-          atomicAdd(&s.accq[rank * kRowLen + off], q);
-          atomicAdd(&s.accw[rank * kRowLen + off], 1);
-        }
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < rows * kRowLen; i += kTile) {
-      const size_t o = ((size_t)tile * nb + r0) * kRowLen + i;
-      psd[o] = live ? (float)s.accq[i] * dscale : 0.0f;
-      pw[o] = live ? (float)s.accw[i] : 0.0f;
+  const int live = all_rows ? nb : list_live(s.list, nb);
+  __syncthreads();
+  int4* q4 = reinterpret_cast<int4*>(s.accq);
+  int4* w4 = reinterpret_cast<int4*>(s.accw);
+  for (int r0 = 0; r0 < live; r0 += kSlab) {
+    const int rows = min(kSlab, live - r0);
+    const int quads = rows * (kRowLen / 4);
+    for (int i = tid; i < quads; i += kTileThreads) {
+      q4[i] = make_int4(0, 0, 0, 0);
+      w4[i] = make_int4(0, 0, 0, 0);
     }
     __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      for (int r = 0; r < k; ++r) {
+        const unsigned p = (unsigned)s.pay[r * kTile + tile_col0() + c];
+        const int rr = (int)(p >> 25) - r0;
+        if (rr >= 0 && rr < rows) {
+          const int cell = rr * kRowLen + ((p >> 16) & 0x1FF);
+          atomicAdd(&s.accq[cell], (int)(short)(p & 0xFFFFu));
+          atomicAdd(&s.accw[cell], 1);
+        }
+      }
+    }
+    __syncthreads();
+    float4* sd4 = reinterpret_cast<float4*>(
+        psd + ((size_t)tile * nb + r0) * kRowLen);
+    float4* pw4 = reinterpret_cast<float4*>(
+        pw + ((size_t)tile * nb + r0) * kRowLen);
+    for (int i = tid; i < quads; i += kTileThreads) {
+      const int4 q = q4[i], w = w4[i];
+      sd4[i] = make_float4((float)q.x * dscale, (float)q.y * dscale,
+                           (float)q.z * dscale, (float)q.w * dscale);
+      pw4[i] = make_float4((float)w.x, (float)w.y, (float)w.z, (float)w.w);
+    }
+    if (r0 + kSlab < live) __syncthreads();
   }
 }
 
-// The block list, coverage rule, ranks and partial rows of one tile: writes
-// the list to pkeys and the partial rows to psd/pw, and returns, for this
-// thread's column, the bit mask over r of the valid samples that are NOT
-// covered.
-static __device__ unsigned tile_accumulate(TileSmem s, int k, int nb, int tile,
-                                           float dscale, int* pkeys,
-                                           float* psd, float* pw) {
+// The block list, coverage rule, ranks and live partial rows of one tile:
+// writes the list to pkeys and the live partial rows to psd/pw, and returns,
+// per column of this thread, the bit mask over r of the valid samples that
+// are NOT covered.
+static __device__ ColMask tile_accumulate(TileSmem s, int k, int nb, int tile,
+                                          float dscale, int* pkeys,
+                                          float* psd, float* pw) {
   tile_block_list(s, k, nb);
-  for (int i = threadIdx.x; i < nb; i += kTile) {
+  for (int i = threadIdx.x; i < nb; i += kTileThreads) {
     pkeys[(size_t)tile * nb + i] = s.list[i];
   }
-  const unsigned ovf = tile_ranks(s, k, nb);
-  tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw);
+  const ColMask ovf = tile_ranks(s, k, nb);
+  tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw, false);
   return ovf;
+}
+
+// Opt a tile kernel into the shared memory it needs, with the SM's carveout
+// at its maximum so that two CTAs fit.
+template <typename Kernel>
+inline cudaError_t tile_kernel_smem(Kernel kern, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace chad

@@ -2,22 +2,23 @@
 // time, and a tensor-core form of their accumulate.
 //
 // M1 micro_stagea_phases replaces the TPU kernel of
-//    scripts/micro_stagea_phases.py:build (:162-186).  One CTA of 1024
-//    threads per (K, 1024) tile of samples; the mode selects the phases:
-//      list  - block list by nb rounds of block-wide min (tile_block_list)
+//    scripts/micro_stagea_phases.py:build (:162-186).  One CTA of 512
+//    threads per (K, 1024) tile of samples (two columns a thread, as K1/K4);
+//    the mode selects the phases:
+//      list  - block list: K1/K4's tile_block_list (warp lists, one merge)
 //      rank  - list + each sample's rank, count form of the TPU kernel
 //      full  - list + ranks + accumulate: K4's own tile_accumulate()
 //      mxu   - accumulate only, with the fixed list 0..nb-1 and rank
 //              clamp(key, 0, nb - 1)
-//      plist - presorted list: each thread sorts its column of K keys with
+//      plist - presorted list: each thread sorts its columns of K keys with
 //              Batcher's bitonic network in registers, drops duplicates,
 //              sorts again, then nb rounds of block-wide min over the
-//              column heads, popping the head that was taken
+//              column heads, popping the heads that were taken
 //      pfull - plist + ranks + accumulate (coverage key <= the list's last)
 //    Outputs are the TPU kernel's: the list (the iota for mxu), and partial
 //    rows that are zero for list/rank/plist except cell (0, 0) of each
 //    tile: row 0 column 0's rank (rank) or column 0's head after the pops
-//    (plist).
+//    (plist).  full and pfull leave dead rows unwritten, as K1/K4 do.
 // M2 micro_tile_accum replaces scripts/micro_tile_accum.py:run (:70-95):
 //    tiles of (rows, 1024) samples, block list, count-form ranks and the
 //    accumulate of every sample (a sample beyond the list lands in row
@@ -32,9 +33,10 @@
 //
 // M1/M2 sum sd as integers on the SD_QUANT grid (quantized with qscale,
 // dequantized with dscale), as K1/K4 do; their plain versions do the same.
-// What bounds them is what bounds K1/K4: the serial block-wide rounds of
-// the list and the shared-memory atomics.  M3 is bound by the MMA issue
-// rate: the dense one-hot spends 512 multiply-adds per sample and column.
+// What bounds them is what bounds K1/K4: the list's rounds and the
+// shared-memory atomics.  M3 is bound by the rate at which MMAs are
+// started: the dense one-hot spends 512 multiply-adds per sample and
+// column.
 #include "common.cuh"
 
 namespace chad {
@@ -76,50 +78,63 @@ __device__ __forceinline__ void bitonic_sort(int (&v)[N]) {
 }
 
 // Presorted block list (the TPU's list_phase_presort): fills s.list like
-// tile_block_list and returns this thread's column head after the pops.
+// tile_block_list and returns the head of this thread's first column after
+// the pops.
 static __device__ int tile_presorted_list(TileSmem s, int k, int nb) {
   const int tid = threadIdx.x;
-  int v[kSortWidth];
+  int v[kCols][kSortWidth];
 #pragma unroll
-  for (int j = 0; j < kSortWidth; ++j) {
-    v[j] = j < k ? s.key[j * kTile + tid] : kInt32Max;
-  }
-  bitonic_sort(v);
+  for (int c = 0; c < kCols; ++c) {
 #pragma unroll
-  for (int j = kSortWidth - 1; j >= 1; --j) {     // duplicates are adjacent
-    if (v[j] == v[j - 1]) v[j] = kInt32Max;
+    for (int j = 0; j < kSortWidth; ++j) {
+      v[c][j] = j < k ? s.key[j * kTile + tile_col0() + c] : kInt32Max;
+    }
+    bitonic_sort(v[c]);
+#pragma unroll
+    for (int j = kSortWidth - 1; j >= 1; --j) {   // duplicates are adjacent
+      if (v[c][j] == v[c][j - 1]) v[c][j] = kInt32Max;
+    }
+    bitonic_sort(v[c]);
   }
-  bitonic_sort(v);
   int r = 0;
   for (; r < nb; ++r) {
-    const int m = block_min(v[0], s.red);
+    const int m = block_min(min(v[0][0], v[1][0]), s.red);
     if (tid == 0) s.list[r] = m;
     if (m == kInt32Max) break;              // uniform
-    const bool pop = v[0] == m;
 #pragma unroll
-    for (int j = 0; j < kSortWidth - 1; ++j) v[j] = pop ? v[j + 1] : v[j];
-    v[kSortWidth - 1] = pop ? kInt32Max : v[kSortWidth - 1];
+    for (int c = 0; c < kCols; ++c) {
+      const bool pop = v[c][0] == m;
+#pragma unroll
+      for (int j = 0; j < kSortWidth - 1; ++j) {
+        v[c][j] = pop ? v[c][j + 1] : v[c][j];
+      }
+      v[c][kSortWidth - 1] = pop ? kInt32Max : v[c][kSortWidth - 1];
+    }
   }
-  for (int i = r + 1 + tid; i < nb; i += kTile) s.list[i] = kInt32Max;
+  for (int i = r + 1 + tid; i < nb; i += kTileThreads) s.list[i] = kInt32Max;
   __syncthreads();
-  return v[0];
+  return v[0][0];
 }
 
-// Loads column threadIdx.x of a tile whose row r starts at base + r * stride.
+// Loads this thread's columns of a tile whose row r starts at
+// base + r * stride.
 __device__ __forceinline__ void load_tile(TileSmem s, const int* bkey,
                                           const int* okey, const float* sd,
                                           size_t base, size_t stride, int k,
                                           float qscale) {
-  const int tid = threadIdx.x;
   for (int r = 0; r < k; ++r) {
-    const size_t g = base + (size_t)r * stride + tid;
-    s.key[r * kTile + tid] = bkey[g];
-    s.pay[r * kTile + tid] = pack_payload(okey[g], quantize_sd(sd[g], qscale));
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const size_t g = base + (size_t)r * stride + tile_col0() + c;
+      const int si = r * kTile + tile_col0() + c;
+      s.key[si] = bkey[g];
+      s.pay[si] = pack_payload(okey[g], quantize_sd(sd[g], qscale));
+    }
   }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kTileThreads, 2)
 micro_stagea_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
                     const float* __restrict__ sd, int n, int k, int nb,
                     int mode, float qscale, float dscale,
@@ -138,42 +153,53 @@ micro_stagea_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
   if (mode == kPList || mode == kPFull) {
     head = tile_presorted_list(s, k, nb);
   } else if (mode == kMxu) {
-    for (int i = tid; i < nb; i += kTile) s.list[i] = i;
+    for (int i = tid; i < nb; i += kTileThreads) s.list[i] = i;
     __syncthreads();
   } else {
     tile_block_list(s, k, nb);
   }
-  for (int i = tid; i < nb; i += kTile) pkeys[(size_t)tile * nb + i] = s.list[i];
+  for (int i = tid; i < nb; i += kTileThreads) {
+    pkeys[(size_t)tile * nb + i] = s.list[i];
+  }
 
   if (mode == kPFull) {
     tile_ranks(s, k, nb);
-    tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw);
+    tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw, false);
     return;
   }
   if (mode == kMxu) {
     for (int j = 0; j < k; ++j) {
-      const int key = s.key[j * kTile + tid];
-      s.key[j * kTile + tid] = key == kInt32Max ? -1 : min(max(key, 0), nb - 1);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int si = j * kTile + tile_col0() + c;
+        const int key = s.key[si];
+        s.pay[si] = key == kInt32Max
+            ? kSkip : pack_rank(min(max(key, 0), nb - 1), s.pay[si]);
+      }
     }
-    tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw);
+    tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw, true);
     return;
   }
   if (mode == kRank) {
     for (int j = 0; j < k; ++j) {
-      s.key[j * kTile + tid] = count_rank(s.list, nb, s.key[j * kTile + tid]);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int si = j * kTile + tile_col0() + c;
+        s.key[si] = count_rank(s.list, nb, s.key[si]);
+      }
     }
   }
   // thread 0 holds cell (0, 0): its own first sample's rank, or its head
   const float first = mode == kRank ? (float)s.key[0]
                                     : mode == kPList ? (float)head : 0.0f;
   const size_t o0 = (size_t)tile * nb * kRowLen;
-  for (int i = tid; i < nb * kRowLen; i += kTile) {
+  for (int i = tid; i < nb * kRowLen; i += kTileThreads) {
     psd[o0 + i] = i == 0 ? first : 0.0f;
     pw[o0 + i] = 0.0f;
   }
 }
 
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kTileThreads, 2)
 micro_tile_accum_kernel(const int* __restrict__ bkeys,
                         const int* __restrict__ offs,
                         const float* __restrict__ sds, int rows, int nb,
@@ -186,11 +212,17 @@ micro_tile_accum_kernel(const int* __restrict__ bkeys,
   load_tile(s, bkeys, offs, sds, (size_t)tile * rows * kTile, kTile, rows,
             qscale);
   tile_block_list(s, rows, nb);
-  for (int i = tid; i < nb; i += kTile) pkeys[(size_t)tile * nb + i] = s.list[i];
-  for (int j = 0; j < rows; ++j) {
-    s.key[j * kTile + tid] = count_rank(s.list, nb, s.key[j * kTile + tid]);
+  for (int i = tid; i < nb; i += kTileThreads) {
+    pkeys[(size_t)tile * nb + i] = s.list[i];
   }
-  tile_slab_accumulate(s, rows, nb, tile, dscale, psd, pw);
+  for (int j = 0; j < rows; ++j) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int si = j * kTile + tile_col0() + c;
+      s.pay[si] = pack_rank(count_rank(s.list, nb, s.key[si]), s.pay[si]);
+    }
+  }
+  tile_slab_accumulate(s, rows, nb, tile, dscale, psd, pw, true);
 }
 
 // ---- M3: tensor-core one-hot contraction ----
@@ -400,12 +432,13 @@ extern "C" int chad_micro_stagea_phases(const int* bkey, const int* okey,
                                         int mode, float qscale, float dscale,
                                         int* pkeys, float* psd, float* pw,
                                         void* stream) {
+  if (nb < 1 || nb > chad::kMaxNb || k < 1 || k > 32)
+    return (int)cudaErrorInvalidValue;
   const int smem = chad::tile_smem_words(k, nb) * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      chad::micro_stagea_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err = chad::tile_kernel_smem(chad::micro_stagea_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  chad::micro_stagea_kernel<<<n / chad::kTile, chad::kTile, smem,
+  if (n / chad::kTile == 0) return 0;
+  chad::micro_stagea_kernel<<<n / chad::kTile, chad::kTileThreads, smem,
                               (cudaStream_t)stream>>>(
       bkey, okey, sd, n, k, nb, mode, qscale, dscale, pkeys, psd, pw);
   CHAD_RETURN_LAUNCH_ERROR();
@@ -416,12 +449,14 @@ extern "C" int chad_micro_tile_accum(const int* bkeys, const int* offs,
                                      int nb, float qscale, float dscale,
                                      int* pkeys, float* psd, float* pw,
                                      void* stream) {
+  if (nb < 1 || nb > chad::kMaxNb || rows < 1 || rows > 32)
+    return (int)cudaErrorInvalidValue;
   const int smem = chad::tile_smem_words(rows, nb) * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      chad::micro_tile_accum_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = chad::tile_kernel_smem(chad::micro_tile_accum_kernel,
+                                           smem);
   if (err != cudaSuccess) return (int)err;
-  chad::micro_tile_accum_kernel<<<ntiles, chad::kTile, smem,
+  if (ntiles == 0) return 0;
+  chad::micro_tile_accum_kernel<<<ntiles, chad::kTileThreads, smem,
                                   (cudaStream_t)stream>>>(
       bkeys, offs, sds, rows, nb, qscale, dscale, pkeys, psd, pw);
   CHAD_RETURN_LAUNCH_ERROR();

@@ -6,9 +6,11 @@
 // valid samples that fell beyond a tile's list.  The fused insert's
 // fallback calls it to learn exactly which samples K1 left out, so it runs
 // K1's own tile_accumulate() (common.cuh) on the same keys.  Bound on the
-// H100: like K1, the tile's serial list extraction and shared-memory
-// atomics, not bytes (it reads K x 1024 x 12 B per tile).  One CTA of 1024
-// threads per tile; thread t loads column t of the tile's K rows.
+// H100: like K1 (fused_integrate.cu), the shared-memory work of the list
+// and the atomics more than its bytes (it reads K x 1024 x 12 B per tile and
+// writes the live rows).  One CTA of 512 threads per tile; thread t loads
+// columns 2t and 2t + 1 of the tile's K rows.  Like K1, it leaves the dead
+// partial rows unwritten.
 //
 // K3 replaces chad_tsdf_tpu/ops/tile_accum.py:merge_partials (Pallas body
 // _merge_kernel, :162-201): it adds slot-sorted partial rows into the
@@ -26,7 +28,7 @@
 
 namespace chad {
 
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kTileThreads, 2)
 tile_partials_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
                      const float* __restrict__ sd, int n, int k, int nb,
                      float qscale, float dscale, int* __restrict__ pkeys,
@@ -34,18 +36,24 @@ tile_partials_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
                      int* __restrict__ ovfmask) {
   extern __shared__ int smem[];
   TileSmem s = tile_smem(smem, k, nb);
-  const int tid = threadIdx.x;
   const int tile = blockIdx.x;
-  const size_t col = (size_t)tile * kTile + tid;
+  const size_t col = (size_t)tile * kTile + tile_col0();
   for (int r = 0; r < k; ++r) {
-    const size_t g = (size_t)r * n + col;
-    s.key[r * kTile + tid] = bkey[g];
-    s.pay[r * kTile + tid] = pack_payload(okey[g], quantize_sd(sd[g], qscale));
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const size_t g = (size_t)r * n + col + c;
+      const int si = r * kTile + tile_col0() + c;
+      s.key[si] = bkey[g];
+      s.pay[si] = pack_payload(okey[g], quantize_sd(sd[g], qscale));
+    }
   }
   __syncthreads();
-  const unsigned ovf = tile_accumulate(s, k, nb, tile, dscale, pkeys, psd, pw);
+  const ColMask ovf = tile_accumulate(s, k, nb, tile, dscale, pkeys, psd, pw);
   for (int r = 0; r < k; ++r) {
-    ovfmask[(size_t)r * n + col] = (ovf >> r) & 1u;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      ovfmask[(size_t)r * n + col + c] = (ovf.m[c] >> r) & 1u;
+    }
   }
 }
 
@@ -97,12 +105,13 @@ extern "C" int chad_tile_partials(const int* bkey, const int* okey,
                                   float qscale, float dscale, int* pkeys,
                                   float* psd, float* pw, int* ovfmask,
                                   void* stream) {
+  if (nb < 1 || nb > chad::kMaxNb || k < 1 || k > 32)
+    return (int)cudaErrorInvalidValue;
   const int smem = chad::tile_smem_words(k, nb) * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      chad::tile_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err = chad::tile_kernel_smem(chad::tile_partials_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  chad::tile_partials_kernel<<<n / chad::kTile, chad::kTile, smem,
+  if (n / chad::kTile == 0) return 0;
+  chad::tile_partials_kernel<<<n / chad::kTile, chad::kTileThreads, smem,
                                (cudaStream_t)stream>>>(
       bkey, okey, sd, n, k, nb, qscale, dscale, pkeys, psd, pw, ovfmask);
   CHAD_RETURN_LAUNCH_ERROR();

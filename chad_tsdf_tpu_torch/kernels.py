@@ -51,7 +51,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fused_tile_partials": [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I] +
                            [_F] * 2 + [_P] * 4,
-    "estimate_normals": [_P] * 6 + [_I] * 2 + [_F] + [_P] * 3,
+    "estimate_normals": [_P] * 6 + [_I] * 2 + [_F] + [_P] * 4,
     "merge_partials": [_P] * 10 + [_I],
     "tile_partials": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 4,
     "accumulate_segments": [_P] * 6 + [_I] * 2 + [_F],
@@ -86,8 +86,8 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[str]:
-    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+def _sources(csrc: str = CSRC) -> list[str]:
+    return sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
                   if f.endswith((".cu", ".cuh")))
 
 
@@ -115,21 +115,20 @@ def _run_all(cmds: list[list[str]]) -> str:
     return text
 
 
-def _build() -> str:
-    """Compile csrc/*.cu into _build/ (once per source hash), one nvcc per
-    source in parallel, then link; returns the library path and keeps the
-    compiler's resource report in BUILD_LOG."""
-    global BUILD_LOG
-    srcs = _sources()
+def build_library(csrc: str = CSRC, build_dir: str = BUILD_DIR):
+    """Compile ``csrc``'s ``.cu`` files into ``build_dir`` (once per source
+    hash), one nvcc per source in parallel, then link; returns the library
+    path and the compiler's resource report."""
+    srcs = _sources(csrc)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in srcs:
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as fh:
             h.update(fh.read())
     tag = h.hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = os.path.join(BUILD_DIR, f"libchad_kernels_{tag}.so")
-    log = os.path.join(BUILD_DIR, f"build_{tag}.log")
+    os.makedirs(build_dir, exist_ok=True)
+    lib = os.path.join(build_dir, f"libchad_kernels_{tag}.so")
+    log = os.path.join(build_dir, f"build_{tag}.log")
     if not os.path.exists(lib):
         nvcc = _nvcc()
         tmp = f"{lib}.{os.getpid()}"
@@ -149,16 +148,16 @@ def _build() -> str:
                 if os.path.exists(o):
                     os.remove(o)
     with open(log) as fh:
-        BUILD_LOG = fh.read()
-    return lib
+        return lib, fh.read()
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _LIB
+    global _LIB, BUILD_LOG
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(_build())
+            path, BUILD_LOG = build_library()
+            lib = ctypes.CDLL(path)
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, "chad_" + name)
                 fn.argtypes = argtypes + [_P]        # + stream

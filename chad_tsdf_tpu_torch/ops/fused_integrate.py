@@ -7,15 +7,15 @@ Amanatides–Woo traversal of ops/dda.py (reference
 include/chad/detail/octree.hpp:92-152), takes the projective signed
 distance along the point's normal (octree.hpp:156-159) and the local
 (block, offset) keys, and accumulates the samples into per-tile partial
-block rows with K4's block list and ranks (``csrc/common.cuh``).  The
-(K, N) sample grids never reach device memory.  Samples beyond a tile's
-``nb`` distinct blocks are not accumulated; the caller recovers them through
-K4 (core/integrate.py ``insert_step_fused``).
+block rows with K4's block list and ranks (``csrc/common.cuh``), writing
+only the live rows.  The (K, N) sample grids never reach device memory.
+Samples beyond a tile's ``nb`` distinct blocks are not accumulated; the
+caller recovers them through K4 (core/integrate.py ``insert_step_fused``).
 
 The plain version is that sequence in PyTorch: :func:`dda.local_sample_grids`
 then :func:`tile_accum.tile_partials_plain`.  On the card the kernel equals
-it bit for bit: the same voxels (see ops/dda.py on rounding), the same
-block lists, and integer sums.
+it bit for bit on the live rows: the same voxels (see ops/dda.py on
+rounding), the same block lists, and integer sums.
 """
 
 from __future__ import annotations
@@ -61,9 +61,13 @@ def fused_tile_partials(px, py, pz, nx, ny, nz, sb, position, origin_voxel,
     counts i32[T, 3]) with T = N / TILE; ``counts[t]`` is tile t's
     [n_valid, n_not_covered, n_samp_ovf].  (The TPU kernel's (G*8, 128)
     counts layout served the TPU's tiling; only the column sums are read.)
+    On the card only the live rows of psd/pw (``tile_accum.live_rows(
+    pkeys)``) are written: the dead ones are left as ``torch.empty`` made
+    them, and K3 / ``plan_tiled_merge`` never read them.  The plain version
+    writes them as zeros.
     """
     n = px.shape[0]
-    tile_accum.check_tile_shape(k, n)
+    tile_accum.check_tile_shape(k, n, nb)
     if px.device.type == "cpu":
         return fused_tile_partials_plain(
             px, py, pz, nx, ny, nz, sb, position, origin_voxel, nb=nb, k=k,

@@ -12,8 +12,9 @@ segmented scans; each point uses the smallest depth whose full segment has
 ``min_points``.  Coordinates are taken relative to the first point of the
 coarsest segment, so second moments do not cancel at world scale.
 
-Kernel K2 (``ops/normals_cuda.py``) computes the same normals in one CUDA
-pass, anchored at each segment's first point; this module is K2's plain
+Kernel K2 (``ops/normals_cuda.py``) computes the same normals on the card
+with a tile-parallel segmented reduction, anchored as here; this module is
+K2's plain
 version (the path of every CPU tensor) and the path under
 ``normals_impl="xla"``.
 """

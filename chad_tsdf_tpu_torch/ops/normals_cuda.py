@@ -1,16 +1,17 @@
-"""K2: normals from segmented moments in one CUDA pass — counterpart of
-``chad_tsdf_tpu/ops/normals_pallas.py``.
+"""K2: normals from segmented moments as a tile-parallel segmented reduction
+on the card — counterpart of ``chad_tsdf_tpu/ops/normals_pallas.py``.
 
 Same result as :func:`ops.normals.estimate_normals_soa` up to float
 reassociation: for depth d a segment is a run of equal (block key,
 offset >> 3d) among the Morton-sorted points; each point fits its plane
 from the moment totals of the smallest depth whose segment has
-``min_points`` members; padding points (key INT32_MAX) and points without
-such a depth get the point->scanner direction.  The kernel
-(``csrc/normals.cu``) sums each segment once, in index order, in
-coordinates relative to the segment's first point.  (The TPU kernel
-anchored at the block corner and summed with a tree-shaped scan; a
-sequential f32 sum needs the nearer anchor to keep mm-scale covariances.)
+``min_points`` members, in coordinates relative to the first point of its
+coarsest segment; padding points (key INT32_MAX) and points without such a
+depth get the point->scanner direction.  The kernel (``csrc/normals.cu``)
+reduces each 1024-point tile's segment pieces in shared memory and
+registers, adds the pieces of segments that cross tiles in tile order in a
+small second pass, and fits in a third; every sum has one fixed order, so
+the normals are the same bit for bit on every run.
 
 The plain version is :func:`ops.normals.estimate_normals_soa` (segmented
 scans, anchored at the first point of the coarsest segment); CPU tensors go
@@ -25,6 +26,8 @@ from .. import kernels
 from . import normals
 
 INT32_MAX = 2**31 - 1
+TILE = 1024          # points per CTA of the kernel's tile passes
+MAX_DEPTH = 4        # offsets have 9 bits: depth 3 is already the block
 
 
 def estimate_normals(px, py, pz, block_keys, offsets, position,
@@ -43,11 +46,20 @@ def estimate_normals(px, py, pz, block_keys, offsets, position,
     kernels.check(block_keys, "block_keys", torch.int32, (n,), dev)
     kernels.check(offsets, "offsets", torch.int32, (n,), dev)
     kernels.check(position, "position", torch.float32, (3,), dev)
-    tot = torch.empty((10 * max_depth, n), dtype=torch.float32, device=dev)
-    starts = torch.empty((max_depth, n), dtype=torch.int32, device=dev)
+    if not 1 <= max_depth <= MAX_DEPTH:
+        raise ValueError(f"max_depth {max_depth} outside 1..{MAX_DEPTH}")
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out[0], out[1], out[2]
+    # per tile and depth: head / tail piece sums and segment totals (10
+    # moments each), and [flag bits, anchor index] — a few hundred KB
+    tiles = -(-n // TILE)
+    part = torch.empty((tiles, max_depth, 2, 10), dtype=torch.float32,
+                       device=dev)
+    tot = torch.empty_like(part)
+    meta = torch.empty((tiles, 2), dtype=torch.int32, device=dev)
     p = kernels.ptr
     kernels.launch("estimate_normals", p(px), p(py), p(pz), p(block_keys),
                    p(offsets), p(position), n, max_depth, float(min_points),
-                   p(tot), p(starts), p(out))
+                   p(part), p(tot), p(meta), p(out))
     return out[0], out[1], out[2]

@@ -9,7 +9,10 @@ all their ray samples) touches a handful of distinct blocks.
   partial block rows ``(nb, 512)`` of signed-distance sums and weights.
   Samples beyond the list are left out and flagged in ``ovfmask`` (never
   silently).  CUDA kernel ``csrc/tile_accum.cu``; plain version
-  :func:`tile_partials_plain`.
+  :func:`tile_partials_plain`.  The kernel (like K1's) writes only the
+  *live* rows, whose list entry is not INT32_MAX; dead rows hold whatever
+  the buffer held (K3 and :func:`plan_merge` never read them), where the
+  plain version writes zeros.  Compare the two on :func:`live_rows`.
 * **K3** :func:`merge_partials`: adds slot-sorted partial rows into the
   pool in place, one 8-row pool group per CTA, following the plan of
   :func:`plan_merge`.  CUDA kernel ``csrc/tile_accum.cu``; plain version
@@ -37,6 +40,7 @@ from .segops import boundary_flags, compact_flag_positions
 INT32_MAX = 2**31 - 1
 TILE = 1024          # points per tile (one CTA)
 SD_QUANT = 32767.0   # fixed-point grid of summed signed distances
+MAX_NB = 127         # list capacity the tile kernels take (7-bit ranks)
 
 
 def sd_scales(sdf_trunc: float) -> tuple[float, float]:
@@ -52,14 +56,22 @@ def quantize_sd(sd: torch.Tensor, sdf_trunc: float) -> torch.Tensor:
         torch.int32)
 
 
-def check_tile_shape(k: int, n: int) -> None:
+def check_tile_shape(k: int, n: int, nb: int | None = None) -> None:
     """Shapes the tile kernels take (a K beyond shared memory makes the
-    launch fail, and :func:`kernels.launch` raises)."""
+    launch fail, and :func:`kernels.launch` raises).  A sample's list rank
+    is packed in 7 bits on the card, so ``nb <= MAX_NB``."""
     if n % TILE != 0:
         raise ValueError(f"tile kernels need N % {TILE} == 0, got {n}")
     if not 1 <= k <= 32:
         raise ValueError(f"tile kernels need 1 <= K <= 32 samples per "
                          f"point, got {k}")
+    if nb is not None and not 1 <= nb <= MAX_NB:
+        raise ValueError(f"tile kernels need 1 <= nb <= {MAX_NB}, got {nb}")
+
+
+def live_rows(pkeys: torch.Tensor) -> torch.Tensor:
+    """bool[P]: the partial rows a tile kernel writes (list entry live)."""
+    return pkeys.reshape(-1) != INT32_MAX
 
 
 # --------------------------------------------------------------------------
@@ -113,11 +125,12 @@ def tile_partials(bkey, okey, sd, nb: int, sdf_trunc: float):
 
     Returns (pkeys i32[T*nb, 1], psd f32[T*nb, 512], pw f32[T*nb, 512],
     ovfmask i32[K, N]) with T = N // TILE: unused list slots have key
-    INT32_MAX and zero rows; ovfmask is 1 where a valid sample lies beyond
+    INT32_MAX, and their rows are zero from the plain version and left
+    unwritten by the kernel; ovfmask is 1 where a valid sample lies beyond
     its tile's list (those samples are not accumulated here).
     """
     k, n = bkey.shape
-    check_tile_shape(k, n)
+    check_tile_shape(k, n, nb)
     if bkey.device.type == "cpu":
         return tile_partials_plain(bkey, okey, sd, nb, sdf_trunc)
     kernels.check(bkey, "bkey", torch.int32)

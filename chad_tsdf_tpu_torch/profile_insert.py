@@ -14,7 +14,7 @@ cloud, seed 420) at the default ``MapConfig``:
    the one host read of ``tile_ovf``;
 3. K2 against its plain version on a dense-voxel cloud: ``--points``
    points in clusters of ``--segment`` points that each lie in one voxel,
-   so one thread of K2 sums the whole cluster at every depth.
+   so one segment spans many of K2's 1024-point tiles at every depth.
 
 The last line is a JSON object with the numbers of 1-3.
 """
@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
+from .config import MapConfig
 from .core import integrate
 from .core.map import TSDFMap
 from .core.state import create_state, origin_blocks_for_position
@@ -167,18 +167,26 @@ def stage_times(pts: np.ndarray, device: torch.device):
             for i, k in enumerate(names)}
 
 
+def sorted_cloud(pts: np.ndarray, cfg: MapConfig, device: torch.device,
+                 n_valid: int | None = None):
+    """(sb, so, px, py, pz): the cloud's points on ``device``, Morton-sorted
+    as an insert from the origin sorts them; points from ``n_valid`` on are
+    padding (key INT32_MAX)."""
+    p = torch.from_numpy(pts).to(device)
+    origin = torch.from_numpy(origin_blocks_for_position(np.zeros(3), cfg)
+                              ).to(device)
+    bkey, okey, _ = integrate.point_keys_soa(
+        p[:, 0], p[:, 1], p[:, 2], p.shape[0] if n_valid is None else n_valid,
+        origin, cfg)
+    return integrate.sort_points_soa(p[:, 0], p[:, 1], p[:, 2], bkey, okey)
+
+
 def k2_dense_voxels(n: int, segment: int, device: torch.device):
     """K2 and its plain version on clusters of ``segment`` points per voxel;
     min dot between the two, the largest depth-0 segment, and both times."""
     cfg = MapConfig()
-    p = torch.from_numpy(voxel_clusters(n, segment, cfg.sdf_res, 5)).to(
-        device)
-    origin = torch.from_numpy(origin_blocks_for_position(np.zeros(3), cfg)
-                              ).to(device)
-    bkey, okey, _ = integrate.point_keys_soa(p[:, 0], p[:, 1], p[:, 2],
-                                             p.shape[0], origin, cfg)
-    sb, so, px, py, pz = integrate.sort_points_soa(p[:, 0], p[:, 1],
-                                                   p[:, 2], bkey, okey)
+    sb, so, px, py, pz = sorted_cloud(
+        voxel_clusters(n, segment, cfg.sdf_res, 5), cfg, device)
     pos = torch.zeros(3, dtype=torch.float32, device=device)
     args = (px, py, pz, sb, so, pos, cfg.normal_min_points,
             cfg.normal_max_depth)
@@ -194,7 +202,7 @@ def k2_dense_voxels(n: int, segment: int, device: torch.device):
     dots = (torch.stack(kernel()) * torch.stack(plain())).sum(0)
     _, counts = torch.unique_consecutive(
         (sb.to(torch.int64) << 32) | so.to(torch.int64), return_counts=True)
-    out = {"points": int(p.shape[0]), "largest_segment": int(counts.max()),
+    out = {"points": int(px.shape[0]), "largest_segment": int(counts.max()),
            "min_dot": float(dots.min())}
     for name, fn in (("ms", kernel), ("plain_ms", plain)):
         times = []

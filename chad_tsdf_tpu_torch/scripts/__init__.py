@@ -7,6 +7,10 @@ PyTorch version, then timings at the script's full sizes.  Run on a card::
     python3 -m chad_tsdf_tpu_torch.scripts.micro_stagea_phases
     python3 -m chad_tsdf_tpu_torch.scripts.micro_tile_accum
     python3 -m chad_tsdf_tpu_torch.scripts.micro_mxu8
+
+Two more time the port's own kernels: ``k1_k2_turns`` (K1 and K2 of an
+older ``csrc/`` against this checkout's, in turns) and ``kernel_phases``
+(K1's device time split by phase, K2's by pass).
 """
 
 from __future__ import annotations
@@ -26,8 +30,12 @@ def require_cuda(device: str) -> torch.device:
     return dev
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+def cuda_ms(fn, reps: int = 10, warmup: int = 2,
+            lead_cycles: int = 2_000_000) -> float:
+    """Median milliseconds of ``fn`` on the current stream (CUDA events).
+    Each timed call is queued behind a spin kernel (``torch.cuda._sleep``,
+    about 1 ms), so that its launches reach the card before it starts and
+    the events bracket device time, not the host's launch latency."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -35,6 +43,7 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(lead_cycles)
         start.record()
         fn()
         end.record()

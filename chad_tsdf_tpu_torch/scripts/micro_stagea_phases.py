@@ -5,7 +5,7 @@ Modes, over the same (K = 11, N = 2^20) sample layout as that script, one
 CTA per (K, 1024) tile (kernel ``csrc/micro.cu``, launch name
 ``micro_stagea_phases``):
 
-  list   block list only: nb rounds of block-wide min
+  list   block list only: K1/K4's warp lists merged once
   rank   list + each sample's rank (count form: # list[1:] <= key)
   full   list + ranks + accumulate: K4's own ``tile_accumulate()``
   mxu    accumulate only, with the list 0..nb-1 and rank clamp(key, 0, nb-1)
@@ -17,6 +17,8 @@ Outputs are the TPU script's: keys i32[T*nb, 1] and partial rows psd/pw
 f32[T*nb, 512].  list/rank/plist write zero rows except cell (0, 0) of each
 tile (row 0 column 0's rank, or column 0's head after the pops); full and
 pfull accumulate the samples whose key is in the list, mxu every valid one.
+On the card full and pfull write only the live rows, as K1/K4 do (their
+dead rows are left unwritten; the check compares live rows).
 Signed distances are summed as K1/K4 sum them, as integers on the SD_QUANT
 grid over [-SD_RANGE, SD_RANGE] (the TPU script summed bf16 on the MXU).
 
@@ -119,7 +121,7 @@ def stagea(bkey, okey, sd, nb: int, mode: str):
     k, n = bkey.shape
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    tile_accum.check_tile_shape(k, n)
+    tile_accum.check_tile_shape(k, n, nb)
     if mode in ("plist", "pfull") and k > PRESORT_MAX_K:
         raise ValueError(f"the presorted list takes K <= {PRESORT_MAX_K}")
     if bkey.device.type == "cpu":
@@ -148,14 +150,18 @@ def build(nb: int, tile: int, mode: str):
 def check(bkey, okey, sd, nb: int = 48, time_plain: bool = False) -> dict:
     """Every mode against its plain version on the same inputs: keys and
     weights equal, sd sums equal (the same integer sums, scaled the same
-    way); the presorted list equals the min-extraction list.  Raises on a
-    difference; returns the largest sd difference and, if asked, the plain
-    version's ms per mode."""
+    way; full and pfull on their live rows); the presorted list equals the
+    min-extraction list.  Raises on a difference; returns the largest sd
+    difference and, if asked, the plain version's ms per mode."""
     out = {"max_abs_err": 0.0, "plain_ms": {}}
     lists = {}
     for mode in MODES:
         got = stagea(bkey, okey, sd, nb, mode)
         ref = stagea_plain(bkey, okey, sd, nb, mode)
+        if mode in ("full", "pfull"):
+            live = tile_accum.live_rows(ref[0])
+            got = (got[0], got[1][live], got[2][live])
+            ref = (ref[0], ref[1][live], ref[2][live])
         for name, a, b in zip(("keys", "psd", "pw"), got, ref):
             if not torch.equal(a, b):
                 raise AssertionError(

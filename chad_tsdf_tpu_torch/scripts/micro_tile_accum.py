@@ -2,10 +2,10 @@
 CUDA port of ``scripts/micro_tile_accum.py``.
 
 For each tile of S = 8192 samples laid out as (ROWS, C) = (8, 1024): the
-list of the NB = 32 smallest distinct block keys (nb rounds of block-wide
-min), each sample's rank in it (count form: # list[1:] <= key; a sample
-beyond the list lands in row NB - 1, as in the TPU kernel), and the
-(NB, 512) partial rows of sd sums and counts.  One CTA of 1024 threads per
+list of the NB = 32 smallest distinct block keys (K1/K4's list phase), each
+sample's rank in it (count form: # list[1:] <= key; a sample beyond the
+list lands in row NB - 1, as in the TPU kernel), and the (NB, 512) partial
+rows of sd sums and counts, every row written.  One CTA of 512 threads per
 tile (kernel ``csrc/micro.cu``, launch name ``micro_tile_accum``); sd is
 summed on the SD_QUANT grid over [-SD_RANGE, SD_RANGE] as K1/K4 sum it (the
 TPU script summed bf16 on the MXU).
@@ -29,7 +29,7 @@ from . import cuda_ms, max_abs_err, require_cuda
 
 S = 8192          # samples per tile
 ROWS = 8          # rows per tile
-C = S // ROWS     # columns per row = threads per CTA
+C = S // ROWS     # columns per row (two per thread of the CTA)
 NB = 32           # block-list capacity per tile
 NTILES = 1024     # ~1M points at K = 8 -> 8M samples
 INF = 2**31 - 1

@@ -12,11 +12,16 @@ runs, failing with a non-zero exit on the first error:
    source, all at once);
 2. each kernel against its plain PyTorch version on the card, with both
    times: K1 fused integrate, K2 normals, K3 tile merge and K4 tile
-   partials on the inputs the 1M-point sphere gives them; K5 segment
-   accumulate on the ``pallas`` backend's tables of the 1M-point sphere
-   and of a dense-voxel cloud (64 voxels x 16,384 points); the
+   partials on the inputs the 1M-point sphere gives them (K1/K4 on their
+   live partial rows: the kernels leave dead rows unwritten); K2 also on a
+   dense-voxel cloud (64 voxels x 16,384 points) and a few small clouds with
+   padding, ragged sizes and segments across tiles, and two K2 launches
+   must give bit-equal normals; K5 segment accumulate on the ``pallas``
+   backend's tables of the 1M-point sphere and of the dense-voxel cloud; the
    microbenchmark kernels M1 (every mode), M2 and M3 (both precisions) at a
-   reduced size;
+   reduced size.  K3 and K5 are also timed against one PyTorch call that
+   computes their function (``index_add_`` / ``index_put_(accumulate=
+   True)``), a yardstick the port never calls;
 3. the main path: ``TSDFMap(0.05, 0.1, device="cuda")`` at the default
    MapConfig inserts the 2^20-point r = 5 m sphere (seed 420, bench.py's
    cloud) and saves a PLY, whose vertices must sit on the sphere; then the
@@ -39,8 +44,14 @@ are reset again just before phase 4's sparse insert, where K4 and K5 must
 launch, and just before phase 7's timing runs, where M1-M3 must launch.
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
-for K4-K5, phase 7 for M1-M3.  The last line is
-``{"ok": true, "device": {...}}``.  The script imports no JAX.
+for K4-K5, phase 7 for M1-M3, with its time, its plain version's time, the
+library call's time (or null) and ``bound_ms``: the least time the H100
+could take for the same work on this run's inputs, the larger of the bytes
+the function must move (each input read once, each output written once)
+over 3.35 TB/s and its operations over the peak rate of their type
+(``bound_by`` says which).  The last line is
+``{"ok": true, "device": {...}}``.  The script imports no JAX and nothing of
+the JAX package ``chad_tsdf_tpu``, and checks that neither was loaded.
 """
 
 from __future__ import annotations
@@ -62,24 +73,35 @@ N_DENSE = 1 << 20
 # per-unit-weight sd gate (tests/test_fused.py:58-59)
 SD_TOL = 1e-4
 KERNELS = {
-    # name -> (source, TPU kernel it replaces)
+    # name -> (source, the TPU kernel's pl.pallas_call it replaces)
     "fused_tile_partials": ("chad_tsdf_tpu_torch/csrc/fused_integrate.cu",
-                            "chad_tsdf_tpu/ops/fused_integrate.py:343"),
+                            "chad_tsdf_tpu/ops/fused_integrate.py:389"),
     "estimate_normals": ("chad_tsdf_tpu_torch/csrc/normals.cu",
-                         "chad_tsdf_tpu/ops/normals_pallas.py:209"),
+                         "chad_tsdf_tpu/ops/normals_pallas.py:241"),
     "merge_partials": ("chad_tsdf_tpu_torch/csrc/tile_accum.cu",
-                       "chad_tsdf_tpu/ops/tile_accum.py:204"),
+                       "chad_tsdf_tpu/ops/tile_accum.py:242"),
     "tile_partials": ("chad_tsdf_tpu_torch/csrc/tile_accum.cu",
-                      "chad_tsdf_tpu/ops/tile_accum.py:116"),
+                      "chad_tsdf_tpu/ops/tile_accum.py:134"),
     "accumulate_segments": ("chad_tsdf_tpu_torch/csrc/accumulate.cu",
-                            "chad_tsdf_tpu/ops/accumulate.py:198"),
+                            "chad_tsdf_tpu/ops/accumulate.py:223"),
     "micro_stagea_phases": ("chad_tsdf_tpu_torch/csrc/micro.cu",
-                            "scripts/micro_stagea_phases.py:162"),
+                            "scripts/micro_stagea_phases.py:168"),
     "micro_tile_accum": ("chad_tsdf_tpu_torch/csrc/micro.cu",
-                         "scripts/micro_tile_accum.py:71"),
+                         "scripts/micro_tile_accum.py:72"),
     "micro_mxu8": ("chad_tsdf_tpu_torch/csrc/micro.cu",
-                   "scripts/micro_mxu8.py:121"),
+                   "scripts/micro_mxu8.py:129"),
 }
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s,
+# f32 outside the tensor cores and bf16 dense tensor-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# f32 operations per point, counted from the kernels' code: K2's three
+# depths of 10 features (9 products, 10 sums each) and the plane fit and
+# flip (~120); K1's ray setup (~60) and ~25 per DDA step
+K2_OPS_PER_POINT = 3 * 19 + 120
+K1_OPS_PER_POINT = 60
+K1_OPS_PER_STEP = 25
 # reduced sizes of phase 2's microbenchmark checks
 MICRO_CHECK_N = 1 << 16        # M1 / M3 points (64 tiles)
 MICRO_CHECK_TILES = 64         # M2 tiles
@@ -113,20 +135,11 @@ def sphere(n, r, seed):
 
 
 def cuda_ms(fn, reps=10, warmup=2):
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median milliseconds of ``fn``'s device time: the port's own timer
+    (``chad_tsdf_tpu_torch.scripts.cuda_ms``), imported once the port is on
+    the path."""
+    from chad_tsdf_tpu_torch.scripts import cuda_ms as timer
+    return timer(fn, reps, warmup)
 
 
 def require(cond, what):
@@ -134,51 +147,89 @@ def require(cond, what):
         raise AssertionError(what)
 
 
-def sd_err_per_weight(sd_a, sd_b, w):
-    return float((torch.abs(sd_a - sd_b) / torch.clamp(w, min=1.0)).max())
+def bound(nbytes, ops=0.0, peak=F32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(cfg, results):
-    """Phase 2: K1-K4 against their plain versions on the sphere's inputs."""
-    from chad_tsdf_tpu_torch.core import integrate
-    from chad_tsdf_tpu_torch.core.state import (create_state,
-                                                origin_blocks_for_position)
-    from chad_tsdf_tpu_torch.ops import (dda, fused_integrate, normals,
-                                         normals_cuda, tile_accum)
+def jax_package_modules():
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "chad_tsdf_tpu") or
+                  m.startswith(("jax.", "chad_tsdf_tpu.")))
 
-    dev = torch.device("cuda")
-    pts = torch.from_numpy(sphere(N_DENSE, 5.0, 420)).to(dev)
-    pos = torch.zeros(3, dtype=torch.float32, device=dev)
-    origin = origin_blocks_for_position(np.zeros(3), cfg)
-    origin_blocks = torch.from_numpy(origin).to(dev)
-    origin_voxel = origin_blocks * 8
-    bkey, okey, _ = integrate.point_keys_soa(pts[:, 0], pts[:, 1], pts[:, 2],
-                                             N_DENSE, origin_blocks, cfg)
-    sb, so, px, py, pz = integrate.sort_points_soa(pts[:, 0], pts[:, 1],
-                                                   pts[:, 2], bkey, okey)
 
-    # ---- K2 ----
+def check_k2(cfg, name, sb, so, px, py, pz, time_it=False):
+    """K2 against its plain version (min dot > 1 - 1e-3) and against a
+    second launch of itself (bit-equal); with ``time_it`` both times."""
+    from chad_tsdf_tpu_torch.ops import normals, normals_cuda
+    pos = torch.zeros(3, dtype=torch.float32, device=px.device)
     nargs = (px, py, pz, sb, so, pos, cfg.normal_min_points,
              cfg.normal_max_depth)
 
-    def k2_plain():
+    def plain():
         return normals.estimate_normals_soa(
             px, py, pz, sb, so, sb != 2**31 - 1, pos, cfg.normal_min_points,
             cfg.normal_max_depth)
 
     nk = torch.stack(normals_cuda.estimate_normals(*nargs))
-    npl = torch.stack(k2_plain())
-    dots = (nk * npl).sum(0)
-    min_dot = float(dots.min())
-    require(min_dot > 1.0 - 1e-3, f"K2 min dot {min_dot}")
-    results["estimate_normals"] = {
-        "max_abs_err": float((nk - npl).abs().max()),
-        "ms": cuda_ms(lambda: normals_cuda.estimate_normals(*nargs)),
-        "plain_ms": cuda_ms(k2_plain, reps=3)}
-    log(f"K2 estimate_normals: min dot {min_dot:.7f} "
-        f"{results['estimate_normals']}")
+    nk2 = torch.stack(normals_cuda.estimate_normals(*nargs))
+    npl = torch.stack(plain())
+    min_dot = float((nk * npl).sum(0).min())
+    require(min_dot > 1.0 - 1e-3, f"K2 min dot {min_dot} ({name})")
+    require(torch.equal(nk, nk2), f"K2 not bit-equal across launches "
+                                  f"({name})")
+    _, seg = torch.unique_consecutive(
+        (sb.to(torch.int64) << 32) | so.to(torch.int64), return_counts=True)
+    r = {"points": int(px.shape[0]), "largest_segment": int(seg.max()),
+         "min_dot": min_dot, "max_abs_err": float((nk - npl).abs().max())}
+    if time_it:
+        r["ms"] = cuda_ms(lambda: normals_cuda.estimate_normals(*nargs))
+        r["plain_ms"] = cuda_ms(plain, reps=3)
+    n = int(px.shape[0])
+    r["bound_ms"], r["bound_by"] = bound(32 * n + 12, K2_OPS_PER_POINT * n)
+    log(f"K2 estimate_normals ({name}): {r}; two launches bit-equal")
+    return r, nk
 
-    # ---- K1 ----
+
+def sd_err_per_weight(sd_a, sd_b, w):
+    return float((torch.abs(sd_a - sd_b) / torch.clamp(w, min=1.0)).max())
+
+
+def check_kernels(cfg, results):
+    """Phase 2: K1-K4 against their plain versions on the sphere's inputs
+    (K2 also on the dense-voxel cloud and small edge-case clouds)."""
+    from chad_tsdf_tpu_torch.core import integrate
+    from chad_tsdf_tpu_torch.core.state import (create_state,
+                                                origin_blocks_for_position)
+    from chad_tsdf_tpu_torch.ops import dda, fused_integrate, tile_accum
+    from chad_tsdf_tpu_torch.profile_insert import sorted_cloud, voxel_clusters
+
+    dev = torch.device("cuda")
+    pos = torch.zeros(3, dtype=torch.float32, device=dev)
+    origin = origin_blocks_for_position(np.zeros(3), cfg)
+    origin_blocks = torch.from_numpy(origin).to(dev)
+    origin_voxel = origin_blocks * 8
+    sb, so, px, py, pz = sorted_cloud(sphere(N_DENSE, 5.0, 420), cfg, dev)
+
+    # ---- K2 ----
+    r2, nk = check_k2(cfg, "sphere", sb, so, px, py, pz, time_it=True)
+    results["estimate_normals"] = r2
+    dense = voxel_clusters(N_DENSE, 16384, cfg.sdf_res, 5)
+    rd, _ = check_k2(cfg, "dense voxels", *sorted_cloud(dense, cfg, dev),
+                     time_it=True)
+    results["estimate_normals"]["dense_voxels"] = rd
+    for name, pts_np, n_valid in (
+            ("ragged 5001 points, 4000 valid", sphere(5001, 1.0, 3), 4000),
+            ("3 segments of 3000 across tiles",
+             voxel_clusters(9000, 3000, cfg.sdf_res, 6), 9000),
+            ("one 40000-point voxel", voxel_clusters(40960, 40960,
+                                                     cfg.sdf_res, 8), 40960)):
+        check_k2(cfg, name, *sorted_cloud(pts_np, cfg, dev, n_valid))
+
+    # ---- K1, on its live partial rows ----
     nx, ny, nz = nk[0].contiguous(), nk[1].contiguous(), nk[2].contiguous()
     kw = dict(nb=cfg.tile_nb, k=cfg.dda_steps, res=cfg.sdf_res,
               trunc=cfg.sdf_trunc, extent=cfg.blocks_per_axis * 8)
@@ -187,18 +238,27 @@ def check_kernels(cfg, results):
     p1 = fused_integrate.fused_tile_partials_plain(*fargs, **kw)
     require(torch.equal(k1[0], p1[0]), "K1 block lists differ")
     require(torch.equal(k1[3], p1[3]), "K1 counters differ")
-    require(torch.equal(k1[2], p1[2]), "K1 weights differ")
-    err1 = sd_err_per_weight(k1[1], p1[1], p1[2])
+    live1 = tile_accum.live_rows(p1[0])
+    n_live = int(live1.sum())
+    require(torch.equal(k1[2][live1], p1[2][live1]), "K1 weights differ")
+    err1 = sd_err_per_weight(k1[1][live1], p1[1][live1], p1[2][live1])
     require(err1 < SD_TOL, f"K1 sd error {err1}")
     tot = k1[3].sum(0).tolist()
+    tiles = N_DENSE // 1024
     results["fused_tile_partials"] = {
-        "max_abs_err": float((k1[1] - p1[1]).abs().max()),
+        "max_abs_err": float((k1[1][live1] - p1[1][live1]).abs().max()),
         "ms": cuda_ms(lambda: fused_integrate.fused_tile_partials(
             *fargs, **kw)),
         "plain_ms": cuda_ms(lambda: fused_integrate.fused_tile_partials_plain(
-            *fargs, **kw), reps=3)}
+            *fargs, **kw), reps=3), "live_rows": n_live}
+    results["fused_tile_partials"]["bound_ms"], \
+        results["fused_tile_partials"]["bound_by"] = bound(
+            28 * N_DENSE + 24 + tiles * cfg.tile_nb * 4 + n_live * 4096 +
+            tiles * 12,
+            (K1_OPS_PER_POINT + K1_OPS_PER_STEP * cfg.dda_steps) * N_DENSE)
     log(f"K1 fused_tile_partials: [n_valid, n_not_covered, n_samp_ovf] = "
-        f"{tot}, rows {k1[1].shape[0]}, {results['fused_tile_partials']}")
+        f"{tot}, rows {k1[1].shape[0]}, live rows {n_live} "
+        f"({n_live / tiles:.2f} per tile), {results['fused_tile_partials']}")
     del p1
 
     # ---- K4, on the sample grids K1 walked internally ----
@@ -209,19 +269,28 @@ def check_kernels(cfg, results):
     targs = (grids[0], grids[1], grids[2], cfg.tile_nb, cfg.sdf_trunc)
     k4 = tile_accum.tile_partials(*targs)
     p4 = tile_accum.tile_partials_plain(*targs)
-    for i, what in ((0, "block lists"), (2, "weights"), (3, "ovfmask")):
-        require(torch.equal(k4[i], p4[i]), f"K4 {what} differ")
-    err4 = sd_err_per_weight(k4[1], p4[1], p4[2])
+    require(torch.equal(k4[0], p4[0]), "K4 block lists differ")
+    require(torch.equal(k4[3], p4[3]), "K4 ovfmask differs")
+    live4 = tile_accum.live_rows(p4[0])
+    require(torch.equal(k4[2][live4], p4[2][live4]), "K4 weights differ")
+    err4 = sd_err_per_weight(k4[1][live4], p4[1][live4], p4[2][live4])
     require(err4 < SD_TOL, f"K4 sd error {err4}")
     # one coverage rule: K4 on the grids reproduces K1 exactly
-    for i in range(3):
-        require(torch.equal(k4[i], k1[i]), f"K4 and K1 output {i} differ")
+    require(torch.equal(k4[0], k1[0]), "K4 and K1 block lists differ")
+    for i in (1, 2):
+        require(torch.equal(k4[i][live4], k1[i][live4]),
+                f"K4 and K1 output {i} differ")
     require(int(k4[3].sum()) == tot[1], "K4 and K1 coverage differ")
+    k_steps = cfg.dda_steps
     results["tile_partials"] = {
-        "max_abs_err": float((k4[1] - p4[1]).abs().max()),
+        "max_abs_err": float((k4[1][live4] - p4[1][live4]).abs().max()),
         "ms": cuda_ms(lambda: tile_accum.tile_partials(*targs)),
         "plain_ms": cuda_ms(lambda: tile_accum.tile_partials_plain(*targs),
                             reps=3)}
+    results["tile_partials"]["bound_ms"], \
+        results["tile_partials"]["bound_by"] = bound(
+            16 * k_steps * N_DENSE + tiles * cfg.tile_nb * 4 +
+            int(live4.sum()) * 4096)
     log(f"K4 tile_partials: {results['tile_partials']}")
     del p4, k4, grids
 
@@ -241,15 +310,35 @@ def check_kernels(cfg, results):
     err3 = sd_err_per_weight(pools_k[0], pools_p[0], pools_p[1])
     require(err3 < SD_TOL, f"K3 sd error {err3}")
     require(torch.equal(pools_k[1], 2 * state.pool_w), "K3 lost weight")
+    # the yardstick: one index_add_ of all P rows ([sd | w] side by side)
+    # at their slots, dead rows at the reserved slot, as a scatter would
+    n_groups, gstart, glen, grow, prow, src = plan
+    ng = int(n_groups[0])
+    lens = glen[:ng].to(torch.int64)
+    slot_sorted = torch.full((k1[0].shape[0],), cfg.block_capacity - 1,
+                             dtype=torch.int64, device=dev)
+    n_live3 = int(lens.sum())
+    slot_sorted[:n_live3] = (torch.repeat_interleave(grow[:ng].to(
+        torch.int64), lens) * 8 + prow[:n_live3].to(torch.int64))
+    row_slot = torch.empty_like(slot_sorted)
+    row_slot[src.to(torch.int64)] = slot_sorted
+    both_pool = torch.cat(pools_p, dim=1)
+    both_rows = torch.cat((k1[1], k1[2]), dim=1)
+    touched = int(torch.unique(slot_sorted[:n_live3]).shape[0])
     results["merge_partials"] = {
         "max_abs_err": float((pools_k[0] - pools_p[0]).abs().max()),
         "ms": cuda_ms(lambda: tile_accum.merge_partials(
             *pools_k, *plan, k1[1], k1[2])),
         "plain_ms": cuda_ms(lambda: tile_accum.merge_partials_plain(
-            *pools_p, *plan, k1[1], k1[2]), reps=3)}
-    log(f"K3 merge_partials: {int(plan[0][0])} groups, "
-        f"{results['merge_partials']}")
-    del state, pools_k, pools_p, k1, directory, plan
+            *pools_p, *plan, k1[1], k1[2]), reps=3),
+        "library_ms": cuda_ms(lambda: both_pool.index_add_(0, row_slot,
+                                                           both_rows)),
+        "live_rows": n_live3, "touched_rows": touched}
+    results["merge_partials"]["bound_ms"], \
+        results["merge_partials"]["bound_by"] = bound(
+            n_live3 * (4096 + 8) + touched * 8192 + ng * 12)
+    log(f"K3 merge_partials: {ng} groups, {results['merge_partials']}")
+    del state, pools_k, pools_p, k1, directory, plan, both_pool, both_rows
 
 
 def k5_inputs(pts_np, cfg, dev):
@@ -280,6 +369,7 @@ def check_k5(cfg, results):
     second adds onto live rows); weights equal, sd within SD_TOL per
     weight."""
     from chad_tsdf_tpu_torch.ops import accumulate
+    from chad_tsdf_tpu_torch.ops.tile_accum import sd_scales
     from chad_tsdf_tpu_torch.profile_insert import voxel_clusters
 
     dev = torch.device("cuda")
@@ -301,19 +391,41 @@ def check_k5(cfg, results):
                 f"K5 lost weight ({name})")
         err = sd_err_per_weight(pools_k[0], pools_p[0], pools_p[1])
         require(err < SD_TOL, f"K5 sd error {err} ({name})")
+        # the yardstick: one index_put_(accumulate=True) of every kept
+        # sample's (sd, 1) into the flattened [sd, w] pool
+        starts, lens, slots = tables
+        cb = state.pool_sd.shape[0]
+        live = (slots != cb - 1) & (lens > 0)
+        ln = torch.where(live, lens, 0).to(torch.int64)
+        first = torch.repeat_interleave(
+            starts.to(torch.int64) - (torch.cumsum(ln, 0) - ln), ln)
+        p = payload[torch.arange(first.shape[0], device=dev) + first]
+        cell = (torch.repeat_interleave(slots.to(torch.int64), ln) * 512 +
+                ((p >> 16) & 0x1FF).to(torch.int64))
+        _, dscale = sd_scales(cfg.sdf_trunc)
+        vals = torch.stack([((p << 16) >> 16).to(torch.float32) * dscale,
+                            torch.ones_like(cell, dtype=torch.float32)], 1)
+        flat = torch.stack([pools_p[0].reshape(-1), pools_p[1].reshape(-1)],
+                           1)
+        members = int(live.sum())
         r = dict(stats, sd_err_per_weight=err,
                  max_abs_err=float((pools_k[0] - pools_p[0]).abs().max()),
                  ms=cuda_ms(lambda: accumulate.accumulate_segments(
                      *pools_k, *args)),
                  plain_ms=cuda_ms(lambda: accumulate.accumulate_segments_plain(
-                     *pools_p, *args), reps=3))
+                     *pools_p, *args), reps=3),
+                 library_ms=cuda_ms(lambda: flat.index_put_(
+                     (cell,), vals, accumulate=True)))
+        r["bound_ms"], r["bound_by"] = bound(
+            4 * stats["kept_samples"] + members * (12 + 8192))
         log(f"K5 accumulate_segments ({name}): {r}")
         out[name] = r
-        del state, pools_k, pools_p, tables, payload
+        del state, pools_k, pools_p, tables, payload, flat, vals, cell, p
         torch.cuda.empty_cache()
     results["accumulate_segments"] = dict(
         out["sphere"], max_abs_err=max(r["max_abs_err"]
-                                       for r in out.values()))
+                                       for r in out.values()),
+        dense_voxels=out["dense voxels"])
 
 
 def micro_inputs(mod, *size):
@@ -357,6 +469,22 @@ def run_micro(errs, results):
     c2 = micro_tile_accum.check(*micro_inputs(micro_tile_accum),
                                 time_plain=True)
     c3 = micro_mxu8.check(*micro_inputs(micro_mxu8), time_plain=True)
+    # bounds at the scripts' full sizes: M1 full mode at nb 48 (its live
+    # rows from the plain list), M2 every row, M3 its 859 GFLOP of bf16
+    m1 = micro_stagea_phases
+    m1_key = torch.from_numpy(m1.inputs()[0]).to("cuda")
+    m1_live = int((m1.tile_lists(m1_key, 48) != m1.INF).sum())
+    m1_tiles = m1.N // m1.TILE
+    m2 = micro_tile_accum
+    m3 = micro_mxu8
+    m3_flop = 2.0 * 512 * 2 * m3.NB * m3.K * m3.N
+    bounds = {
+        "micro_stagea_phases": bound(12 * m1.K * m1.N + m1_tiles * 48 * 4 +
+                                     m1_live * 4096),
+        "micro_tile_accum": bound(12 * m2.S * m2.NTILES + m2.NTILES * m2.NB *
+                                  (4 + 4096)),
+        "micro_mxu8": bound(16 * m3.K * m3.N + (m3.N // 1024) * m3.NB * 4096,
+                            m3_flop, BF16_FLOPS)}
     for name, ms, plain_ms, err in (
             ("micro_stagea_phases", b1["ms"]["full_nb48"],
              c1["plain_ms"]["full"], c1["max_abs_err"]),
@@ -365,7 +493,8 @@ def run_micro(errs, results):
              c3["max_abs_err"])):
         require(launches[name] > 0, f"{name} launched 0 times in its run")
         results[name] = {"max_abs_err": max(err, errs[name]), "ms": ms,
-                         "plain_ms": plain_ms}
+                         "plain_ms": plain_ms, "bound_ms": bounds[name][0],
+                         "bound_by": bounds[name][1]}
     log(f"phase 7 microbenchmarks: M1 ms {b1['ms']}; M1 plain ms "
         f"{c1['plain_ms']}; M2 {b2}; M2 plain ms {c2['plain_ms']}; M3 ms "
         f"{b3['ms']}; M3 plain ms {c3['plain_ms']}; launches {launches}")
@@ -408,7 +537,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from chad_tsdf_tpu_torch import MapConfig, TSDFMap, kernels
     from chad_tsdf_tpu_torch.mesh import read_ply
-    require("jax" not in sys.modules, "the port imported jax")
+    require(not jax_package_modules(),
+            f"the port imported {jax_package_modules()}")
 
     # ---- phase 1: build ----
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -587,13 +717,18 @@ def main() -> int:
                     **{k: micro_launches[k] for k in (
                         "micro_stagea_phases", "micro_tile_accum",
                         "micro_mxu8")})
+    require(not jax_package_modules(),
+            f"the run loaded {jax_package_modules()}")
     out = []
     for name, (src, replaces) in KERNELS.items():
         r = results[name]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                    "plain_ms": r["plain_ms"]})
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r.get("library_ms")})
+    log(f"phase 2 details: {json.dumps(results)}")
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

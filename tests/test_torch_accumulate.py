@@ -16,14 +16,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
+from chad_tsdf_tpu.config import MapConfig as JaxMapConfig
 from chad_tsdf_tpu.core import integrate as j_integrate
 from chad_tsdf_tpu.core.state import create_state as j_create_state
-from chad_tsdf_tpu.core.state import origin_blocks_for_position
 from chad_tsdf_tpu.ops import accumulate as j_acc
-from chad_tsdf_tpu_torch import TSDFMap
+from chad_tsdf_tpu_torch import MapConfig, TSDFMap
 from chad_tsdf_tpu_torch.core import integrate as t_integrate
-from chad_tsdf_tpu_torch.core.state import create_state
+from chad_tsdf_tpu_torch.core.state import (create_state,
+                                            origin_blocks_for_position)
 from chad_tsdf_tpu_torch.ops import accumulate as t_acc
 
 TRUNC = 0.1
@@ -43,6 +43,11 @@ def _sphere(n, r, seed):
 def _cfg(impl, n=2048, cap=8192):
     return MapConfig(max_points=n, block_capacity=cap, touched_capacity=cap,
                      accumulate_impl=impl)
+
+
+def _jax(cfg):
+    """The JAX package's MapConfig with the port's config's fields."""
+    return JaxMapConfig(**dataclasses.asdict(cfg))
 
 
 def _assert_tables_equal(j, t):
@@ -231,15 +236,15 @@ def test_update_pool_k5_route_matches_jax(cap, t_cap):
                     touched_capacity=t_cap, accumulate_impl="xla")
     pos = np.asarray([0.1, 0.0, -0.2], np.float32)
     origin = origin_blocks_for_position(pos, cfg)
-    jst = j_create_state(cfg, origin)
+    jst = j_create_state(_jax(cfg), origin)
     batch = j_integrate.sort_samples(j_integrate.compute_samples(
         jnp.asarray(_sphere(2048, 1.0, 2)), jnp.int32(2048),
-        jnp.asarray(pos), jst.origin_blocks, cfg))
+        jnp.asarray(pos), jst.origin_blocks, _jax(cfg)))
     t_cfg = dataclasses.replace(cfg, accumulate_impl="pallas")
-    tst = create_state(t_cfg, origin)
+    tst = create_state(t_cfg, origin, "cpu")
     t_batch = t_integrate.SampleBatch(*(_t(a) for a in batch))
     for _ in range(2):
-        jst, jm = j_integrate.update_pool(jst, batch, cfg)
+        jst, jm = j_integrate.update_pool(jst, batch, _jax(cfg))
         tst, tm = t_integrate.update_pool(tst, t_batch, t_cfg)
         for key in jm:
             assert int(tm[key]) == int(jm[key]), key
@@ -253,10 +258,11 @@ def test_pallas_backend_matches_jax_xla():
     pts = _sphere(2048, 1.0, 0)
     pos = np.zeros(3, np.float32)
     origin = origin_blocks_for_position(pos, _cfg("xla"))
-    js, jm = j_integrate.insert_step(j_create_state(_cfg("xla"), origin),
-                                     jnp.asarray(pts), jnp.int32(2048),
-                                     jnp.asarray(pos), _cfg("xla"))
-    ts, tm = t_integrate.insert_step(create_state(_cfg("pallas"), origin),
+    js, jm = j_integrate.insert_step(
+        j_create_state(_jax(_cfg("xla")), origin), jnp.asarray(pts),
+        jnp.int32(2048), jnp.asarray(pos), _jax(_cfg("xla")))
+    ts, tm = t_integrate.insert_step(create_state(_cfg("pallas"), origin,
+                                                  "cpu"),
                                      _t(pts), 2048, _t(pos), _cfg("pallas"))
     _compare_states(js, ts)
     for key in jm:
@@ -277,10 +283,10 @@ def test_tile_backend_matches_jax_tile(radius, expect_fallback):
     pos = np.zeros(3, np.float32)
     origin = origin_blocks_for_position(pos, cfg)
     js, jm = j_integrate.insert_step_tiled(
-        j_create_state(cfg, origin), jnp.asarray(pts), jnp.int32(2048),
-        jnp.asarray(pos), cfg, interpret=True)
-    ts, tm = t_integrate.insert_step(create_state(cfg, origin), _t(pts),
-                                     2048, _t(pos), cfg)
+        j_create_state(_jax(cfg), origin), jnp.asarray(pts), jnp.int32(2048),
+        jnp.asarray(pos), _jax(cfg), interpret=True)
+    ts, tm = t_integrate.insert_step(create_state(cfg, origin, "cpu"),
+                                     _t(pts), 2048, _t(pos), cfg)
     _compare_states(js, ts)
     assert (int(ts.tile_overflow) > 0) == expect_fallback
     for key in jm:
@@ -297,8 +303,8 @@ def test_fused_fallback_through_k5(monkeypatch):
     pts = _sphere(2048, 5.0, 0)
     pos = np.zeros(3, np.float32)
     origin = origin_blocks_for_position(pos, cfg)
-    scatter, _ = t_integrate.insert_step(create_state(cfg, origin), _t(pts),
-                                         2048, _t(pos), cfg)
+    scatter, _ = t_integrate.insert_step(create_state(cfg, origin, "cpu"),
+                                         _t(pts), 2048, _t(pos), cfg)
     calls = []
     plain = t_acc.accumulate_segments_plain
 
@@ -309,8 +315,8 @@ def test_fused_fallback_through_k5(monkeypatch):
     monkeypatch.setattr(t_integrate, "_use_segment_kernel",
                         lambda config, device: True)
     monkeypatch.setattr(t_acc, "accumulate_segments_plain", counting)
-    ts, _ = t_integrate.insert_step(create_state(cfg, origin), _t(pts), 2048,
-                                    _t(pos), cfg)
+    ts, _ = t_integrate.insert_step(create_state(cfg, origin, "cpu"),
+                                    _t(pts), 2048, _t(pos), cfg)
     assert calls and int(ts.tile_overflow) > 0
     assert torch.equal(ts.dir_keys, scatter.dir_keys)
     assert torch.equal(ts.dir_slots, scatter.dir_slots)

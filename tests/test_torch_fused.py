@@ -6,17 +6,20 @@ tests/test_fused.py), for a dense cloud and a sparse one that falls back.
 Plus determinism, incremental inserts, and a state carried from the JAX
 package into the port."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
+from chad_tsdf_tpu.config import MapConfig as JaxMapConfig
 from chad_tsdf_tpu.core import integrate as j_integrate
 from chad_tsdf_tpu.core.state import create_state as j_create_state
-from chad_tsdf_tpu.core.state import origin_blocks_for_position
+from chad_tsdf_tpu_torch.config import MapConfig
 from chad_tsdf_tpu_torch.core import integrate as t_integrate
 from chad_tsdf_tpu_torch.core.state import (ActiveMapState, create_state,
+                                            origin_blocks_for_position,
                                             state_from_numpy, state_to_numpy)
 
 
@@ -30,6 +33,11 @@ def _sphere(n, r=5.0, seed=0):
 def _cfg(n, impl="fused", cap=8192):
     return MapConfig(max_points=n, block_capacity=cap, touched_capacity=cap,
                      accumulate_impl=impl)
+
+
+def _jax(cfg):
+    """The JAX package's MapConfig with the port's config's fields."""
+    return JaxMapConfig(**dataclasses.asdict(cfg))
 
 
 def _port_insert(state, pts, pos, cfg):
@@ -66,9 +74,9 @@ def test_fused_insert_matches_jax(radius, expect_fallback):
     pos = np.zeros(3, np.float32)
     origin = origin_blocks_for_position(pos, cfg)
     js, jm = j_integrate.insert_step_fused(
-        j_create_state(cfg, origin), jnp.asarray(pts), jnp.int32(2048),
-        jnp.asarray(pos), cfg, interpret=True)
-    ts, tm = _port_insert(create_state(cfg, origin), pts, pos, cfg)
+        j_create_state(_jax(cfg), origin), jnp.asarray(pts), jnp.int32(2048),
+        jnp.asarray(pos), _jax(cfg), interpret=True)
+    ts, tm = _port_insert(create_state(cfg, origin, "cpu"), pts, pos, cfg)
     compare(js, ts)
     assert int(ts.tile_overflow) == int(js.tile_overflow)
     assert (int(ts.tile_overflow) > 0) == expect_fallback
@@ -87,8 +95,8 @@ def test_fused_matches_scatter_backend(radius):
     states = {}
     for impl in ("fused", "xla"):
         cfg = _cfg(2048, impl)
-        states[impl], _ = _port_insert(create_state(cfg, origin), pts, pos,
-                                       cfg)
+        states[impl], _ = _port_insert(create_state(cfg, origin, "cpu"),
+                                       pts, pos, cfg)
     f, x = states["fused"], states["xla"]
     assert torch.equal(f.dir_keys, x.dir_keys)
     nbk = int(x.n_blocks)
@@ -103,8 +111,8 @@ def test_fused_incremental_and_determinism():
     pts = _sphere(1024, seed=3)
     pos = np.zeros(3, np.float32)
     origin = origin_blocks_for_position(pos, cfg)
-    s1, _ = _port_insert(create_state(cfg, origin), pts, pos, cfg)
-    s2, _ = _port_insert(create_state(cfg, origin), pts, pos, cfg)
+    s1, _ = _port_insert(create_state(cfg, origin, "cpu"), pts, pos, cfg)
+    s2, _ = _port_insert(create_state(cfg, origin, "cpu"), pts, pos, cfg)
     assert torch.equal(s1.pool_sd, s2.pool_sd)
     assert torch.equal(s1.pool_w, s2.pool_w)
     w1 = s1.pool_w.clone()
@@ -121,25 +129,26 @@ def test_carry_across_from_jax():
     origin = origin_blocks_for_position(pos, cfg)
     a = _sphere(2048, r=1.0, seed=10)
     b = _sphere(2048, r=1.3, seed=11)
-    js, _ = j_integrate.insert_step(j_create_state(cfg, origin),
+    js, _ = j_integrate.insert_step(j_create_state(_jax(cfg), origin),
                                     jnp.asarray(a), jnp.int32(2048),
-                                    jnp.asarray(pos), cfg)
+                                    jnp.asarray(pos), _jax(cfg))
     fields = {f: np.asarray(getattr(js, f)) for f in
               ActiveMapState.__dataclass_fields__}
-    ts = state_from_numpy(fields)
+    ts = state_from_numpy(fields, device="cpu")
     np.testing.assert_array_equal(state_to_numpy(ts)["pool_w"],
                                   fields["pool_w"])
     js, _ = j_integrate.insert_step(js, jnp.asarray(b), jnp.int32(2048),
-                                    jnp.asarray(pos), cfg)
+                                    jnp.asarray(pos), _jax(cfg))
     cfg_f = _cfg(2048, impl="fused")
     ts, _ = _port_insert(ts, b, pos, cfg_f)
     compare(js, ts)
 
 
 def test_state_from_numpy_rejects_bad_fields():
-    st = state_to_numpy(create_state(_cfg(1024, cap=64)))
+    st = state_to_numpy(create_state(_cfg(1024, cap=64), device="cpu"))
     with pytest.raises(KeyError):
-        state_from_numpy({k: v for k, v in st.items() if k != "pool_w"})
+        state_from_numpy({k: v for k, v in st.items() if k != "pool_w"},
+                         device="cpu")
     st["pool_sd"] = st["pool_sd"].astype(np.float64)
     with pytest.raises(TypeError):
-        state_from_numpy(st)
+        state_from_numpy(st, device="cpu")

@@ -1,19 +1,28 @@
 """The port's public surface on the CPU: ``TSDFMap(device="cpu")`` insert +
 save against the JAX ``TSDFMap``, the golden sphere workload of
-tests/test_mesh.py, submap rotation, and that importing the port never
-imports jax."""
+tests/test_mesh.py, submap rotation; that the port imports neither jax nor
+the JAX package, that its own copies of ``MapConfig`` and the DAG agree
+with the JAX package's, and that its entry points default to the card."""
 
+import dataclasses
+import inspect
 import os
 import subprocess
 import sys
 
 import numpy as np
 import pytest
+import torch
 
 from chad_tsdf_tpu import TSDFMap as JaxTSDFMap
-from chad_tsdf_tpu.config import MapConfig
+from chad_tsdf_tpu.config import MapConfig as JaxMapConfig
+from chad_tsdf_tpu.core import dag as j_dag
 from chad_tsdf_tpu.mesh.rmse import analytic_sphere_rmse, vertex_rmse
 from chad_tsdf_tpu_torch import TSDFMap
+from chad_tsdf_tpu_torch.config import MapConfig
+from chad_tsdf_tpu_torch.core import dag as t_dag
+from chad_tsdf_tpu_torch.core import state as t_state
+from chad_tsdf_tpu_torch.core import submap as t_submap
 from chad_tsdf_tpu_torch.core.map import LazyMetrics
 from chad_tsdf_tpu_torch.mesh import read_ply
 
@@ -34,11 +43,16 @@ def _small_cfg(impl):
                      mesh_impl="host")
 
 
+def _jax(cfg):
+    """The JAX package's MapConfig with the port's config's fields."""
+    return JaxMapConfig(**dataclasses.asdict(cfg))
+
+
 @pytest.mark.parametrize("impl", ["xla", "fused"])
 def test_map_insert_save_matches_jax(impl, tmp_path):
     pts = _sphere(4096, 1.0, 3)
     pos = np.asarray([0.05, -0.02, 0.01], np.float32)
-    jm = JaxTSDFMap(config=_small_cfg("xla"))
+    jm = JaxTSDFMap(config=_jax(_small_cfg("xla")))
     jm.insert(pts, pos)
     tm = TSDFMap(config=_small_cfg(impl), device="cpu")
     met = tm.insert(pts, pos)
@@ -97,7 +111,7 @@ def test_rotation_and_finalize_match_jax(tmp_path):
     scans = [(_sphere(4096, 1.0, 5), np.zeros(3, np.float32)),
              (_sphere(4096, 1.0, 6, centre=(6.0, 0.0, 0.0)),
               np.asarray([6.0, 0.0, 0.0], np.float32))]
-    jm = JaxTSDFMap(config=cfg)
+    jm = JaxTSDFMap(config=_jax(cfg))
     tm = TSDFMap(config=_small_cfg("fused"), device="cpu")
     for pts, pos in scans:
         jm.insert(pts, pos)
@@ -122,13 +136,107 @@ def test_unported_options_raise():
             TSDFMap(config=MapConfig(**kw), device="cpu")
 
 
-def test_port_imports_no_jax():
-    code = ("import sys; import chad_tsdf_tpu_torch, "
-            "chad_tsdf_tpu_torch.core.map, chad_tsdf_tpu_torch.kernels; "
-            "from chad_tsdf_tpu_torch import TSDFMap, MapConfig; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+def test_port_imports_no_jax(tmp_path):
+    """Importing the port, then a CPU insert + save (which builds the DAG,
+    through the native runtime where g++ builds it), loads neither jax nor
+    any module of the JAX package."""
+    code = f"""
+import sys
+import numpy as np
+import chad_tsdf_tpu_torch, chad_tsdf_tpu_torch.core.map
+import chad_tsdf_tpu_torch.kernels
+from chad_tsdf_tpu_torch import TSDFMap, MapConfig
+rng = np.random.default_rng(0)
+d = rng.normal(size=(4096, 3))
+pts = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+m = TSDFMap(config=MapConfig(max_points=4096, block_capacity=4096,
+                             touched_capacity=4096), device="cpu")
+m.insert(pts, np.zeros(3, np.float32))
+m.save({str(tmp_path / "m.ply")!r})
+bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
+             or k == "chad_tsdf_tpu" or k.startswith("chad_tsdf_tpu."))
+assert not bad, bad
+print("n_vertices", m.extract_mesh().n_vertices)
+"""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 0
+
+
+def test_port_config_matches_jax():
+    """The port's MapConfig copy has the JAX one's fields, defaults, derived
+    properties and checks."""
+    tf = [(f.name, f.type, f.default) for f in dataclasses.fields(MapConfig)]
+    jf = [(f.name, f.type, f.default)
+          for f in dataclasses.fields(JaxMapConfig)]
+    assert tf == jf
+    for kw in ({}, {"sdf_res": 0.1, "sdf_trunc": 0.3},
+               {"max_points": 65536, "point_buckets": (8192, 20000)},
+               {"max_steps": 7, "block_bits": 9}):
+        t, j = MapConfig(**kw), JaxMapConfig(**kw)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        for prop in ("dda_steps", "buckets", "blocks_per_axis",
+                     "local_extent_m", "sample_capacity"):
+            assert getattr(t, prop) == getattr(j, prop), prop
+    for kw in ({"sdf_res": 0.0}, {"block_bits": 11},
+               {"accumulate_impl": "nope"}, {"tile_nb": 12},
+               {"normals_impl": "cuda"}, {"carve_steps": -1}):
+        for cls in (MapConfig, JaxMapConfig):
+            with pytest.raises(ValueError):
+                cls(**kw)
+
+
+@pytest.mark.parametrize("native", [False, True])
+def test_port_dag_matches_jax(native):
+    """The port's core/dag.py (numpy, or its native runtime built into the
+    port's own _build/) builds the same node levels as the JAX package's on
+    the same finalize input: two submaps of a CPU map, consed into both."""
+    if native:
+        from chad_tsdf_tpu_torch import native as t_native
+        assert t_native.available(), "g++ did not build csrc/chadrt.cpp"
+        assert os.path.dirname(t_native.SRC).startswith(
+            os.path.join(ROOT, "chad_tsdf_tpu_torch"))
+    cfg = _small_cfg("xla")
+    levels = {"port": t_dag.NodeLevels(use_native=native),
+              "jax": j_dag.NodeLevels(use_native=native)}
+    roots = {k: [] for k in levels}
+    for seed, r in ((7, 1.0), (8, 1.4)):
+        m = TSDFMap(config=cfg, device="cpu")
+        pos = np.zeros(3, np.float32)
+        m.insert(_sphere(4096, r, seed), pos)
+        for k, lv in levels.items():
+            sm = t_submap.finalize(m.state, lv, cfg, [pos])
+            roots[k].append((sm.root_addr_tsdf, sm.root_addr_weight,
+                             sm.n_clusters, sm.n_voxels))
+    assert roots["port"] == roots["jax"]
+    tl, jl = levels["port"], levels["jax"]
+    assert tl.native == jl.native == native
+    assert tl.stats() == jl.stats()
+    for a, b in zip(tl.nodes, jl.nodes):
+        np.testing.assert_array_equal(a.raw, b.raw)
+    np.testing.assert_array_equal(tl.leaf_clusters.raw, jl.leaf_clusters.raw)
+    for root_t, _, _, _ in roots["port"]:
+        for a, b in zip(tl.walk_leaf_clusters(root_t),
+                        jl.walk_leaf_clusters(root_t)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """TSDFMap, create_state and state_from_numpy run on the card unless the
+    caller asks for the CPU; without a card they raise, never falling back
+    to the CPU."""
+    for fn in (TSDFMap.__init__, t_state.create_state,
+               t_state.state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    cfg = MapConfig(max_points=1024, block_capacity=64, touched_capacity=64)
+    fields = t_state.state_to_numpy(t_state.create_state(cfg, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: TSDFMap(), lambda: t_state.create_state(cfg),
+                 lambda: t_state.state_from_numpy(fields)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert TSDFMap().device == torch.device("cuda")
+    assert TSDFMap(device="cpu").device == torch.device("cpu")

@@ -10,10 +10,11 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
 from chad_tsdf_tpu.ops import morton, normals, normals_pallas
+from chad_tsdf_tpu_torch.config import MapConfig
 from chad_tsdf_tpu_torch.ops import normals as t_normals
 from chad_tsdf_tpu_torch.ops import normals_cuda
+from chad_tsdf_tpu_torch.profile_insert import voxel_clusters
 
 CFG = MapConfig()
 INT32_MAX = 2**31 - 1
@@ -91,6 +92,37 @@ def test_k2_plain_multi_tile_segment():
     dot, b = _min_dot(j, t)
     assert dot > 1.0 - 1e-3, dot
     assert np.unique(b, axis=0).shape[0] <= 2
+
+
+@pytest.mark.parametrize("segment,n,n_valid", [
+    (3000, 9000, 8500),    # segments begin and end mid-tile; padding
+    (5120, 10240, 10240),  # two segments of five whole tiles each
+])
+def test_k2_plain_segments_across_tiles(segment, n, n_valid):
+    """Planar patches of ``segment`` points, each inside one voxel, so one
+    segment at every depth spans several of the kernel's 1024-point tiles:
+    K2's wrapper on CPU tensors (its plain version) against the JAX
+    segmented-scan form, and every member of a patch gets one normal."""
+    pts, sb, so = _sort_cloud(voxel_clusters(n, segment, CFG.sdf_res, 4),
+                              n_valid)
+    valid = sb != INT32_MAX
+    _, first, counts = np.unique(sb[valid], return_index=True,
+                                 return_counts=True)
+    assert counts.max() >= segment - (n - n_valid)
+    assert ((first + counts - 1) // normals_cuda.TILE - first //
+            normals_cuda.TILE).max() >= 3
+    pos = np.asarray([0.1, -0.2, 0.3], np.float32)
+    j = normals.estimate_normals_soa(
+        *(jnp.asarray(pts[:, i]) for i in range(3)), jnp.asarray(sb),
+        jnp.asarray(so), jnp.asarray(valid), jnp.asarray(pos),
+        CFG.normal_min_points, CFG.normal_max_depth)
+    t = normals_cuda.estimate_normals(
+        *(_t(pts[:, i]) for i in range(3)), _t(sb), _t(so), _t(pos),
+        CFG.normal_min_points, CFG.normal_max_depth)
+    dot, b = _min_dot(j, t)
+    assert dot > 1.0 - 1e-3, dot
+    for f, c in zip(first, counts):
+        assert np.unique(b[f:f + c], axis=0).shape[0] == 1
 
 
 @pytest.mark.parametrize("r,n_valid", [(1.0, 2048), (5.0, 2048),

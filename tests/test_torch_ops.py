@@ -2,17 +2,20 @@
 Morton codes, the 8-bit codec, segment operations, the payload packing and
 the DDA — bit-exact, except signed distances (f32, within 1e-6)."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
+from chad_tsdf_tpu.config import MapConfig as JaxMapConfig
 from chad_tsdf_tpu.core import integrate as j_integrate
 from chad_tsdf_tpu.ops import codec as j_codec
 from chad_tsdf_tpu.ops import dda as j_dda
 from chad_tsdf_tpu.ops import morton as j_morton
 from chad_tsdf_tpu.ops import segops as j_segops
+from chad_tsdf_tpu_torch.config import MapConfig
 from chad_tsdf_tpu_torch.core import integrate as t_integrate
 from chad_tsdf_tpu_torch.ops import codec as t_codec
 from chad_tsdf_tpu_torch.ops import dda as t_dda
@@ -162,7 +165,8 @@ def test_point_keys_and_sort_match():
     pts = _cloud(4096, 3.0, 7)
     origin = np.asarray([-512, -512, -512], np.int32)
     jk = j_integrate.point_keys_soa(*(jnp.asarray(pts[:, i]) for i in range(3)),
-                                    jnp.int32(4000), jnp.asarray(origin), cfg)
+                                    jnp.int32(4000), jnp.asarray(origin),
+                                    JaxMapConfig(**dataclasses.asdict(cfg)))
     tk = t_integrate.point_keys_soa(*(_t(pts[:, i]) for i in range(3)), 4000,
                                     _t(origin), cfg)
     for a, b in zip(jk, tk):

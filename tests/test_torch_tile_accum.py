@@ -4,18 +4,21 @@ lists, overflow masks and weights exact, sd sums within 1e-4 (the port
 sums on the 16-bit SD_QUANT grid) — and K3 + ``plan_merge`` against the
 JAX ``update_pool_tiled`` — directory exact, weights exact."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
-from chad_tsdf_tpu.config import MapConfig
+from chad_tsdf_tpu.config import MapConfig as JaxMapConfig
 from chad_tsdf_tpu.core import integrate as j_integrate
 from chad_tsdf_tpu.core.state import create_state as j_create_state
-from chad_tsdf_tpu.core.state import origin_blocks_for_position
 from chad_tsdf_tpu.ops import tile_accum as j_tile
+from chad_tsdf_tpu_torch.config import MapConfig
 from chad_tsdf_tpu_torch.core import integrate as t_integrate
 from chad_tsdf_tpu_torch.core.state import create_state as t_create_state
+from chad_tsdf_tpu_torch.core.state import origin_blocks_for_position
 from chad_tsdf_tpu_torch.ops import tile_accum as t_tile
 
 INT32_MAX = 2**31 - 1
@@ -97,23 +100,25 @@ def test_update_pool_tiled_matches_jax(r):
     version), twice, so the second merge adds onto live rows."""
     cfg = MapConfig(max_points=2048, block_capacity=4096,
                     touched_capacity=4096, accumulate_impl="tile")
+    jcfg = JaxMapConfig(**dataclasses.asdict(cfg))
     pts = _sphere(2048, r, 3)
     pos = np.zeros(3, np.float32)
     origin = origin_blocks_for_position(pos, cfg)
-    jst = j_create_state(cfg, origin)
+    jst = j_create_state(jcfg, origin)
     pj = jnp.asarray(pts)
     bkey, okey, _ = j_integrate.point_keys(pj, jnp.int32(2048),
-                                           jst.origin_blocks, cfg)
+                                           jst.origin_blocks, jcfg)
     spts, sb, so = j_integrate.sort_points(pj, bkey, okey)
     s_bkey, s_okey, sd, n_valid, _ = j_integrate.compute_sample_grids(
-        spts, sb, so, jnp.asarray(pos), jst.origin_blocks, cfg)
+        spts, sb, so, jnp.asarray(pos), jst.origin_blocks, jcfg)
     pk, psd, pw, _ = j_tile.tile_partials(s_bkey, s_okey, sd, nb=48,
                                           interpret=True)
-    tst = t_create_state(cfg, origin)
+    tst = t_create_state(cfg, origin, "cpu")
     zero = jnp.int32(0)
     for _ in range(2):
         jst, jm = j_integrate.update_pool_tiled(
-            jst, pk, psd, pw, zero, n_valid, zero, zero, cfg, interpret=True)
+            jst, pk, psd, pw, zero, n_valid, zero, zero, jcfg,
+            interpret=True)
         tst, tm = t_integrate.update_pool_tiled(
             tst, _t(pk), _t(psd), _t(pw), torch.tensor(0, dtype=torch.int32),
             int(n_valid), 0, 0, cfg)
