@@ -18,7 +18,8 @@ Kernels and the TPU kernels they replace (``chad_tsdf_tpu/ops/...``):
 * K2 ``estimate_normals``     <- normals_pallas.py:estimate_normals_pallas
 * K3 ``merge_partials``       <- tile_accum.py:merge_partials
 * K4 ``tile_partials``        <- tile_accum.py:tile_partials
-* K5 ``accumulate_segments``  <- accumulate.py:accumulate_pallas
+* K5 ``accumulate_segments``  <- accumulate.py:accumulate_pallas (its
+  chunk list alone: ``plan_chunks``, for checks)
 * M1 ``micro_stagea_phases``  <- scripts/micro_stagea_phases.py:build
 * M2 ``micro_tile_accum``     <- scripts/micro_tile_accum.py:run
 * M3 ``micro_mxu8``           <- scripts/micro_mxu8.py:build
@@ -54,7 +55,9 @@ _SIGNATURES = {
     "estimate_normals": [_P] * 6 + [_I] * 2 + [_F] + [_P] * 4,
     "merge_partials": [_P] * 10 + [_I],
     "tile_partials": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 4,
-    "accumulate_segments": [_P] * 6 + [_I] * 2 + [_F],
+    "accumulate_segments": [_P] * 6 + [_I] * 2 + [_F] + [_I] * 2 +
+                           [_P] * 3,
+    "plan_chunks": [_P] * 2 + [_I] * 4 + [_P],
     "micro_stagea_phases": [_P] * 3 + [_I] * 4 + [_F] * 2 + [_P] * 3,
     "micro_tile_accum": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 3,
     "micro_mxu8": [_P] * 4 + [_I] * 4 + [_P] * 2,

@@ -16,12 +16,15 @@ cloud, seed 420) at the default ``MapConfig``:
    points in clusters of ``--segment`` points that each lie in one voxel,
    so one segment spans many of K2's 1024-point tiles at every depth.
 
-The last line is a JSON object with the numbers of 1-3.
+The last line is a JSON object with the numbers of 1-3.  The module also
+holds the test clouds and K5's input tables that ``chip_smoke.py`` and the
+scripts share.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -34,7 +37,7 @@ from .config import MapConfig
 from .core import integrate
 from .core.map import TSDFMap
 from .core.state import create_state, origin_blocks_for_position
-from .ops import fused_integrate, normals, normals_cuda
+from .ops import accumulate, fused_integrate, normals, normals_cuda
 
 INT32_MAX = 2**31 - 1
 
@@ -63,6 +66,65 @@ def voxel_clusters(n: int, segment: int, res: float, seed: int) -> np.ndarray:
     p = (c[:, None] + uv[..., :1] * t1[:, None] + uv[..., 1:] * t2[:, None]
          + h * d[:, None])
     return p.reshape(-1, 3)[:n].astype(np.float32)
+
+
+def k5_clouds(cfg: MapConfig) -> dict:
+    """The three clouds K5 is measured on, by name: the 2^20-point sphere,
+    64 voxels x 16,384 points and 2^20 points in one voxel."""
+    n = 1 << 20
+    return {"sphere": sphere(n, 5.0, 420),
+            "dense_voxels": voxel_clusters(n, 16384, cfg.sdf_res, 5),
+            "single_voxel": voxel_clusters(n, n, cfg.sdf_res, 5)}
+
+
+def k5_inputs(pts_np, cfg: MapConfig, dev):
+    """K5's inputs on the ``pallas`` backend for one insert of ``pts_np``
+    (scanned from the origin) into a fresh map: (pools, member tables,
+    payload, stats)."""
+    cfg = dataclasses.replace(cfg, accumulate_impl="pallas")
+    state = create_state(cfg, origin_blocks_for_position(np.zeros(3), cfg),
+                         dev)
+    pts = torch.from_numpy(pts_np).to(dev)
+    pos = torch.zeros(3, dtype=torch.float32, device=dev)
+    batch = integrate.sort_samples(integrate.compute_samples(
+        pts, pts.shape[0], pos, state.origin_blocks, cfg))
+    n_valid = (batch.bkey != 2**31 - 1).sum(dtype=torch.int32)
+    _, tables, t_count, _ = integrate.plan_segments(state, batch.bkey,
+                                                    n_valid, cfg)
+    stats = {"samples": int(n_valid), "members": int(t_count),
+             "kept_samples": int(tables[1].sum()),
+             "max_segment": int(tables[1].max())}
+    return (state.pool_sd, state.pool_w), tables, batch.payload, stats
+
+
+def boundary_inputs(cfg: MapConfig, dev, chunk: int = accumulate.CHUNK,
+                    seed: int = 4):
+    """A synthetic table whose segment lengths sit on chunk boundaries
+    (C-1, C, C+1, 2C, 2C+1, 3C+5, 1, ...), with dead members between them
+    (the reserved slot with samples, a live slot with none), padded to the
+    touched capacity; random payloads from ``seed``; zero pools."""
+    rng = np.random.default_rng(seed)
+    cb, t = cfg.block_capacity, cfg.touched_capacity
+    c = chunk
+    lens = np.asarray([c - 1, c, c + 1, 2 * c, 2 * c + 1, 3 * c + 5, 1, 0,
+                       777, 5 * c, c, 1, 2], np.int64)
+    slots = rng.permutation(cb - accumulate.GROUP)[:lens.shape[0]]
+    slots[[3, 11]] = cb - 1                  # the reserved slot, with samples
+    # (member 7: a live slot with no samples)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    pad = t - lens.shape[0]
+    tables = [np.concatenate([a, np.full(pad, v)]).astype(np.int32)
+              for a, v in ((starts, 0), (lens, 0), (slots, cb - 1))]
+    payload = rng.integers(-2**31, 2**31 - 1, int(lens.sum()),
+                           dtype=np.int64).astype(np.int32)
+    kept = int(lens[(slots != cb - 1)].sum())
+    stats = {"samples": int(lens.sum()), "members": int((slots != cb - 1)
+                                                         .sum()),
+             "kept_samples": kept, "max_segment": int(lens.max())}
+    pools = (torch.zeros((cb, 512), dtype=torch.float32, device=dev),
+             torch.zeros((cb, 512), dtype=torch.float32, device=dev))
+    return (pools, tuple(torch.from_numpy(a).to(dev) for a in tables),
+            torch.from_numpy(payload).to(dev), stats)
 
 
 class Stopwatch:

@@ -8,9 +8,10 @@ PyTorch version, then timings at the script's full sizes.  Run on a card::
     python3 -m chad_tsdf_tpu_torch.scripts.micro_tile_accum
     python3 -m chad_tsdf_tpu_torch.scripts.micro_mxu8
 
-Two more time the port's own kernels: ``k1_k2_turns`` (K1 and K2 of an
-older ``csrc/`` against this checkout's, in turns) and ``kernel_phases``
-(K1's device time split by phase, K2's by pass).
+Three more time the port's own kernels: ``k1_k2_turns`` (K1 and K2 of an
+older ``csrc/`` against this checkout's, in turns), ``k5_turns`` (K5 the
+same way) and ``kernel_phases`` (K1's device time split by phase, K2's by
+pass).
 """
 
 from __future__ import annotations

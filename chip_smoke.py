@@ -17,7 +17,11 @@ runs, failing with a non-zero exit on the first error:
    dense-voxel cloud (64 voxels x 16,384 points) and a few small clouds with
    padding, ragged sizes and segments across tiles, and two K2 launches
    must give bit-equal normals; K5 segment accumulate on the ``pallas``
-   backend's tables of the 1M-point sphere and of the dense-voxel cloud; the
+   backend's tables of the 1M-point sphere, the dense-voxel cloud and a
+   single-voxel cloud (2^20 points in one voxel), and on a synthetic table
+   with segments on chunk boundaries: its device chunk list against the
+   plain one, both pool planes bit for bit against the plain version, and
+   two launches bit-equal; the
    microbenchmark kernels M1 (every mode), M2 and M3 (both precisions) at a
    reduced size.  K3 and K5 are also timed against one PyTorch call that
    computes their function (``index_add_`` / ``index_put_(accumulate=
@@ -341,60 +345,84 @@ def check_kernels(cfg, results):
     del state, pools_k, pools_p, k1, directory, plan, both_pool, both_rows
 
 
-def k5_inputs(pts_np, cfg, dev):
-    """K5's inputs on the ``pallas`` backend for one insert of ``pts_np``
-    (scanned from the origin) into a fresh map: (state, member tables,
-    payload, stats)."""
-    from chad_tsdf_tpu_torch.core import integrate
-    from chad_tsdf_tpu_torch.core.state import (create_state,
-                                                origin_blocks_for_position)
-    state = create_state(cfg, origin_blocks_for_position(np.zeros(3), cfg),
-                         dev)
-    pts = torch.from_numpy(pts_np).to(dev)
-    pos = torch.zeros(3, dtype=torch.float32, device=dev)
-    batch = integrate.sort_samples(integrate.compute_samples(
-        pts, pts.shape[0], pos, state.origin_blocks, cfg))
-    n_valid = (batch.bkey != 2**31 - 1).sum(dtype=torch.int32)
-    _, tables, t_count, _ = integrate.plan_segments(state, batch.bkey,
-                                                    n_valid, cfg)
-    stats = {"samples": int(n_valid), "members": int(t_count),
-             "kept_samples": int(tables[1].sum()),
-             "max_segment": int(tables[1].max())}
-    return state, tables, batch.payload, stats
-
-
 def check_k5(cfg, results):
-    """Phase 2, K5 on the pallas backend's tables of the 1M-point sphere and
-    of a dense-voxel cloud (64 voxels x 16,384 points): two passes (the
-    second adds onto live rows); weights equal, sd within SD_TOL per
-    weight."""
+    """Phase 2, K5 on the pallas backend's tables of the 1M-point sphere, a
+    dense-voxel cloud (64 voxels x 16,384 points) and a single-voxel cloud
+    (2^20 points in one voxel), and on a synthetic table whose segment
+    lengths sit on chunk boundaries: the device chunk list equals
+    plan_chunks_plain; two launches on equal pools give bit-equal pools;
+    two passes (the second adds onto live rows) equal the plain version bit
+    for bit on both planes; no launch overflows its chunk list, and a table
+    of overlapping segments that outgrows it sets the flag and adds
+    nothing."""
     from chad_tsdf_tpu_torch.ops import accumulate
     from chad_tsdf_tpu_torch.ops.tile_accum import sd_scales
-    from chad_tsdf_tpu_torch.profile_insert import voxel_clusters
+    from chad_tsdf_tpu_torch.profile_insert import (boundary_inputs,
+                                                    k5_clouds, k5_inputs)
 
     dev = torch.device("cuda")
-    cfg_p = dataclasses.replace(cfg, accumulate_impl="pallas")
+
+    def k5(pools, args, name):
+        accumulate.accumulate_segments(*pools, *args)
+        require(not accumulate.overflowed(dev),
+                f"K5 chunk list overflowed ({name})")
+
+    # five live members over one 5C-sample range: more multi-chunk members
+    # than the scratch rows sized for disjoint segments
+    c, t = accumulate.CHUNK, cfg.touched_capacity
+    cb = cfg.block_capacity
+    over = [torch.zeros(t, dtype=torch.int32, device=dev) for _ in range(3)]
+    over[1][:5] = 5 * c
+    over[2][:] = cb - 1
+    over[2][:5] = torch.arange(5, device=dev)
+    pay = torch.zeros(5 * c, dtype=torch.int32, device=dev)
+    pools = (torch.zeros((cb, 512), device=dev),
+             torch.zeros((cb, 512), device=dev))
+    accumulate.accumulate_segments(*pools, *over, pay, cfg.sdf_trunc)
+    require(accumulate.overflowed(dev) and not pools[0].any() and
+            not pools[1].any(), "K5 overlapping segments: no overflow flag")
+    try:
+        accumulate.plan_chunks(over[1], over[2], cb, pay.numel())
+        require(False, "plan_chunks took overlapping segments")
+    except RuntimeError:
+        pass
+    del over, pay, pools
     out = {}
-    for name, pts in (("sphere", sphere(N_DENSE, 5.0, 420)),
-                      ("dense voxels", voxel_clusters(N_DENSE, 16384,
-                                                      cfg.sdf_res, 5))):
-        state, tables, payload, stats = k5_inputs(pts, cfg_p, dev)
+    inputs = [(name, lambda pts=pts: k5_inputs(pts, cfg, dev))
+              for name, pts in k5_clouds(cfg).items()]
+    inputs.append(("chunk_boundaries", lambda: boundary_inputs(cfg, dev)))
+    for name, make in inputs:
+        pools_k, tables, payload, stats = make()
         args = (*tables, payload, cfg.sdf_trunc)
-        pools_k = (state.pool_sd, state.pool_w)
-        pools_p = (state.pool_sd.clone(), state.pool_w.clone())
+        starts, lens, slots = tables
+        cb = pools_k[0].shape[0]
+        plan = accumulate.plan_chunks(lens, slots, cb, payload.numel())
+        plain_plan = accumulate.plan_chunks_plain(lens, slots, cb,
+                                                  accumulate.CHUNK)
+        require(all(torch.equal(a, b) for a, b in zip(plan, plain_plan)),
+                f"K5 chunk list differs from plan_chunks_plain ({name})")
+        stats["chunks"] = int(plan[0].shape[0])
+        stats["multi_chunk_members"] = int((plan[2] >= 0).sum())
+        twice = [(pools_k[0].clone(), pools_k[1].clone()) for _ in range(2)]
+        for pools in twice:
+            k5(pools, args, name)
+        require(torch.equal(twice[0][0], twice[1][0]) and
+                torch.equal(twice[0][1], twice[1][1]),
+                f"K5 not bit-equal across launches ({name})")
+        del twice
+        pools_p = (pools_k[0].clone(), pools_k[1].clone())
         for _ in range(2):
-            accumulate.accumulate_segments(*pools_k, *args)
+            k5(pools_k, args, name)
             accumulate.accumulate_segments_plain(*pools_p, *args)
         require(torch.equal(pools_k[1], pools_p[1]),
                 f"K5 weights differ ({name})")
+        require(torch.equal(pools_k[0], pools_p[0]),
+                f"K5 sd differs ({name})")
         require(int(pools_k[1].double().sum()) == 2 * stats["kept_samples"],
                 f"K5 lost weight ({name})")
         err = sd_err_per_weight(pools_k[0], pools_p[0], pools_p[1])
-        require(err < SD_TOL, f"K5 sd error {err} ({name})")
         # the yardstick: one index_put_(accumulate=True) of every kept
         # sample's (sd, 1) into the flattened [sd, w] pool
-        starts, lens, slots = tables
-        cb = state.pool_sd.shape[0]
         live = (slots != cb - 1) & (lens > 0)
         ln = torch.where(live, lens, 0).to(torch.int64)
         first = torch.repeat_interleave(
@@ -416,16 +444,19 @@ def check_k5(cfg, results):
                      *pools_p, *args), reps=3),
                  library_ms=cuda_ms(lambda: flat.index_put_(
                      (cell,), vals, accumulate=True)))
+        require(not accumulate.overflowed(dev),
+                f"K5 chunk list overflowed ({name})")
         r["bound_ms"], r["bound_by"] = bound(
             4 * stats["kept_samples"] + members * (12 + 8192))
         log(f"K5 accumulate_segments ({name}): {r}")
         out[name] = r
-        del state, pools_k, pools_p, tables, payload, flat, vals, cell, p
+        del pools_k, pools_p, tables, payload, flat, vals, cell, p
         torch.cuda.empty_cache()
     results["accumulate_segments"] = dict(
         out["sphere"], max_abs_err=max(r["max_abs_err"]
                                        for r in out.values()),
-        dense_voxels=out["dense voxels"])
+        **{k: out[k] for k in ("dense_voxels", "single_voxel",
+                               "chunk_boundaries")})
 
 
 def micro_inputs(mod, *size):
@@ -612,6 +643,7 @@ def main() -> int:
         f"{mesh.n_faces} faces, RMSE to the r=5 sphere {rmse:.6f} m")
 
     # the pallas and tile backends: same cloud, same number of inserts
+    from chad_tsdf_tpu_torch.ops import accumulate
     for impl in ("pallas", "tile"):
         kernels.reset_launches()
         mb = TSDFMap(0.05, 0.1, config=dataclasses.replace(
@@ -630,6 +662,8 @@ def main() -> int:
         for name in needed:
             require(impl_launches[name] > 0,
                     f"{name} launched 0 times on the {impl} backend")
+        require(not accumulate.overflowed("cuda"),
+                f"K5 chunk list overflowed on the {impl} backend")
         err = same_map(mb, m, f"dense {impl} vs fused")
         log(f"phase 3 {impl} insert: {statistics.median(impl_ms):.3f} ms "
             f"median of {[round(x, 3) for x in impl_ms]} (fused "
@@ -642,7 +676,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 4: sparse insert -> fallback through K4 and K5 ----
-    from chad_tsdf_tpu_torch.ops import accumulate
     sparse_cfg = MapConfig(max_points=2048)
     sparse = sphere(2048, 5.0, 7)
     ms_ = TSDFMap(0.05, 0.1, config=sparse_cfg, device="cuda")
@@ -662,6 +695,8 @@ def main() -> int:
         require(sparse_launches[name] > 0,
                 f"{name} launched 0 times on the sparse insert")
     require(int(ms_.state.tile_overflow) > 0, "sparse insert did not fall back")
+    require(not accumulate.overflowed("cuda"),
+            "K5 chunk list overflowed on the sparse insert")
     mx = TSDFMap(0.05, 0.1, config=dataclasses.replace(
         sparse_cfg, accumulate_impl="xla"), device="cuda")
     mx.insert(sparse, origin0)

@@ -192,6 +192,214 @@ def test_k5_skips_dead_members():
                                                        .sum()) == 0
 
 
+def _edge_tables(chunk):
+    """Members of lengths 0, 1, C-1, C, C+1 and 3C+5 on live slots, two dead
+    members with samples (reserved slot), packed back to back."""
+    cb = 64
+    lens = np.asarray([0, 1, chunk - 1, 7, chunk, chunk + 1, 5, 3 * chunk + 5],
+                      np.int32)
+    slots = np.asarray([3, 9, 1, cb - 1, 20, 4, cb - 1, 11], np.int32)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    return cb, starts, lens, slots
+
+
+def _assert_chunks_cover(lens, slots, cb, chunk):
+    """plan_chunks_plain's list: every kept sample lies in exactly one
+    chunk; a member's chunks are contiguous and in order; dead members and
+    the reserved slot give none; multi-chunk members get scratch rows
+    0, 1, ... in member order.  Returns the chunks per member."""
+    member, index, row = (a.numpy() for a in t_acc.plan_chunks_plain(
+        _t(lens), _t(slots), cb, chunk))
+    live = (slots != cb - 1) & (lens > 0)
+    hits = {m: np.zeros(lens[m], np.int32) for m in range(len(lens))}
+    for m, k in zip(member, index):
+        assert live[m]
+        lo = k * chunk
+        hi = min(lo + chunk, lens[m])
+        assert 0 <= lo < hi
+        hits[m][lo:hi] += 1
+    for m in range(len(lens)):
+        np.testing.assert_array_equal(hits[m], 1 if live[m] else 0)
+        ks = index[member == m]
+        np.testing.assert_array_equal(ks, np.arange(ks.shape[0]))
+    assert (np.diff(member) >= 0).all()
+    nch = np.where(live, -(-lens // chunk), 0)
+    np.testing.assert_array_equal(
+        row, np.where(nch > 1, np.cumsum(nch > 1) - 1, -1))
+    # the device list's capacity and scratch rows bound this list
+    cap, rows = t_acc._chunk_sizes(len(lens), int(lens.sum()), chunk)
+    assert member.shape[0] <= cap and int((nch > 1).sum()) <= rows
+    return nch
+
+
+@pytest.mark.parametrize("chunk", [8, 4096])
+def test_plan_chunks_plain_covers_each_sample_once(chunk):
+    cb, _, lens, slots = _edge_tables(chunk)
+    nch = _assert_chunks_cover(lens, slots, cb, chunk)
+    assert list(nch) == [0, 1, 1, 0, 1, 2, 0, 4]
+
+
+def test_chunk_sizes_bound_random_tables():
+    """For disjoint segments of a payload, the list never outgrows its
+    capacity nor the multi-chunk members the scratch rows."""
+    rng = np.random.default_rng(11)
+    for _ in range(50):
+        chunk = int(rng.choice([8, 64, 4096]))
+        t = int(rng.integers(1, 200))
+        lens = rng.integers(0, 4 * chunk, t).astype(np.int32)
+        slots = np.where(rng.random(t) < 0.2, 63, 5).astype(np.int32)
+        s = int(lens.sum()) + int(rng.integers(0, chunk))
+        member, _, row = t_acc.plan_chunks_plain(_t(lens), _t(slots), 64,
+                                                 chunk)
+        cap, rows = t_acc._chunk_sizes(t, s, chunk)
+        assert member.shape[0] <= cap
+        assert int(row.max()) < rows
+
+
+def _chunked_plain(pool_sd, pool_w, starts, lens, slots, payload, chunk):
+    """K5 as the kernel runs it: per chunk int64 cell partials, a member's
+    chunk partials summed in chunk order, then scaled once, added once."""
+    cb = pool_sd.shape[0]
+    member, index, _ = t_acc.plan_chunks_plain(lens, slots, cb, chunk)
+    m = member.to(torch.int64)
+    lo = index.to(torch.int64) * chunk
+    clen = torch.clamp(lens.to(torch.int64)[m] - lo, max=chunk)
+    first = starts.to(torch.int64)[m] + lo
+    cid = torch.repeat_interleave(torch.arange(m.shape[0]), clen)
+    pos = torch.arange(cid.shape[0]) - torch.repeat_interleave(
+        torch.cumsum(clen, 0) - clen, clen)
+    p = payload.to(torch.int64)[first[cid] + pos]
+    cell = cid * 512 + ((p >> 16) & 0x1FF)
+    part_q = torch.zeros(m.shape[0] * 512, dtype=torch.int64)
+    part_q.index_add_(0, cell, (p << 48) >> 48)
+    part_w = torch.zeros_like(part_q)
+    part_w.index_add_(0, cell, torch.ones_like(cell))
+    tot_q = torch.zeros((lens.shape[0], 512), dtype=torch.int64)
+    tot_w = torch.zeros_like(tot_q)
+    for c in range(m.shape[0]):                  # chunk order
+        tot_q[m[c]] += part_q[c * 512:(c + 1) * 512]
+        tot_w[m[c]] += part_w[c * 512:(c + 1) * 512]
+    _, dscale = t_acc.sd_scales(TRUNC)
+    for mm in torch.unique(m).tolist():
+        row = int(slots[mm])
+        hit = tot_w[mm] != 0
+        pool_sd[row, hit] = (pool_sd[row, hit] +
+                             tot_q[mm, hit].to(torch.float32) * dscale)
+        pool_w[row, hit] = pool_w[row, hit] + tot_w[mm, hit].to(torch.float32)
+    return pool_sd, pool_w
+
+
+@pytest.mark.parametrize("chunk", [8, 64, 4096])
+def test_chunked_accumulate_equals_plain(chunk):
+    """Chunk partials summed then scaled once equal the plain K5 bit for bit,
+    on random segments with one long block and on the edge lengths."""
+    rng = np.random.default_rng(chunk)
+    cb, t_cap = 64, 16
+    offs, sd, starts, lens, slots, _ = _segments(rng, cb, t_cap, 3000, 8,
+                                                 long_block=3 * chunk + 5)
+    payload = np.asarray(j_integrate.pack_payload(
+        jnp.asarray(offs), jnp.asarray(sd), TRUNC))
+    ecb, estarts, elens, eslots = _edge_tables(chunk)
+    epay = rng.integers(-2**31, 2**31 - 1, int(elens.sum()),
+                        dtype=np.int64).astype(np.int32)
+    for cb_, tables, pay in ((cb, (starts, lens, slots), payload),
+                             (ecb, (estarts, elens, eslots), epay)):
+        tables = tuple(_t(a) for a in tables)
+        got = (torch.zeros((cb_, 512)), torch.zeros((cb_, 512)))
+        want = (torch.zeros((cb_, 512)), torch.zeros((cb_, 512)))
+        for _ in range(2):                       # the second adds onto rows
+            _chunked_plain(*got, *tables, _t(pay), chunk)
+            t_acc.accumulate_segments_plain(*want, *tables, _t(pay), TRUNC)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert float(want[1].sum()) == 2 * float(
+            tables[1][tables[2] != cb_ - 1].sum())
+
+
+def test_chunked_accumulate_matches_jax_kernel():
+    """The chunked accumulate (chunk 32: most members have several chunks)
+    against accumulate_pallas(interpret=True) at the shapes of
+    test_k5_plain_matches_jax_kernel_and_scatter: weights exact, sd within
+    1e-3 per sample (the TPU kernel's bf16 one-hot)."""
+    rng = np.random.default_rng(9)
+    cb, t_cap, s_n = 64, 32, 4096
+    offs, sd, starts, lens, slots, _ = _segments(rng, cb, t_cap, s_n, 30)
+    payload = j_integrate.pack_payload(jnp.asarray(offs), jnp.asarray(sd),
+                                       TRUNC)
+    zeros = jnp.zeros((cb, 512), jnp.float32)
+    groups = j_acc.group_touched_blocks(jnp.asarray(starts),
+                                        jnp.asarray(lens),
+                                        jnp.asarray(slots), t_cap, cb)
+    k_sd, k_w = j_acc.accumulate_pallas(
+        zeros, zeros, *groups,
+        jnp.concatenate([payload, jnp.zeros(j_acc.CHUNK, jnp.int32)]),
+        touched_capacity=t_cap, sd_scale=TRUNC / 32767.0, interpret=True)
+    tables = t_acc.group_touched_blocks(_t(starts), _t(lens), _t(slots),
+                                        t_cap, cb)[4:]
+    assert int(t_acc.plan_chunks_plain(tables[1], tables[2], cb, 32)[2]
+               .max()) > 10
+    got_sd, got_w = _chunked_plain(torch.zeros((cb, 512)),
+                                   torch.zeros((cb, 512)), *tables,
+                                   _t(payload), 32)
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(k_w))
+    w = np.maximum(np.asarray(k_w), 1)
+    assert (np.abs(got_sd.numpy() - np.asarray(k_sd)) / w).max() < 1e-3
+
+
+def test_chip_boundary_table_on_cpu():
+    """chip_smoke's chunk-boundary table (profile_insert.py
+    boundary_inputs) at a small size on the CPU: its chunk list covers every
+    kept sample once, and the chunked accumulate equals the plain one bit
+    for bit."""
+    from chad_tsdf_tpu_torch.profile_insert import boundary_inputs
+    chunk = 64
+    cfg = MapConfig(block_capacity=512, touched_capacity=64)
+    pools, tables, payload, stats = boundary_inputs(cfg, "cpu", chunk)
+    starts, lens, slots = tables
+    nch = _assert_chunks_cover(lens.numpy(), slots.numpy(), 512, chunk)
+    assert list(nch[:13]) == [1, 1, 2, 0, 3, 4, 1, 0, 13, 5, 1, 0, 1]
+    assert not nch[13:].any()
+    assert int(lens.sum()) == payload.shape[0] == stats["samples"]
+    want = (pools[0].clone(), pools[1].clone())
+    t_acc.accumulate_segments_plain(*want, *tables, payload, TRUNC)
+    _chunked_plain(*pools, *tables, payload, chunk)
+    assert torch.equal(pools[0], want[0]) and torch.equal(pools[1], want[1])
+    assert float(want[1].sum()) == stats["kept_samples"]
+
+
+def test_plan_chunks_wrapper_on_cpu_is_plain():
+    cb, starts, lens, slots = _edge_tables(t_acc.CHUNK)
+    got = t_acc.plan_chunks(_t(lens), _t(slots), cb, int(lens.sum()))
+    want = t_acc.plan_chunks_plain(_t(lens), _t(slots), cb, t_acc.CHUNK)
+    assert [int(a.shape[0]) for a in got] == [9, 9, 8]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_chunk_sizes_outgrown_by_overlapping_segments():
+    """chip_smoke's overflow table: five live members over one 5C-sample
+    range need more multi-chunk rows than disjoint segments could, which is
+    what the device plan flags (and then adds nothing)."""
+    c = t_acc.CHUNK
+    lens = np.full(16, 0, np.int32)
+    lens[:5] = 5 * c
+    slots = np.full(16, 63, np.int32)
+    slots[:5] = np.arange(5)
+    member, _, row = t_acc.plan_chunks_plain(_t(lens), _t(slots), 64, c)
+    cap, rows = t_acc._chunk_sizes(16, 5 * c, c)
+    assert member.shape[0] == 25 and cap == 16 + 5
+    assert int(row.max()) + 1 == 5 > rows == 4
+
+
+def test_k5_launch_refuses_cpu_tensors():
+    """The kernel entry never falls back to the plain version."""
+    cb, starts, lens, slots = _edge_tables(8)
+    pool = torch.zeros((cb, 512))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_acc.launch_segments(pool, pool.clone(), _t(starts), _t(lens),
+                              _t(slots), torch.zeros(100, dtype=torch.int32),
+                              TRUNC)
+
+
 @pytest.mark.parametrize("impl,device,expect", [
     ("pallas", "cpu", True), ("pallas", "cuda", True),
     ("xla", "cpu", False), ("xla", "cuda", False),
