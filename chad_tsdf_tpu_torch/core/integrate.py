@@ -1,5 +1,5 @@
-"""The dense insert pipeline — PyTorch port of the dense half of
-``chad_tsdf_tpu/core/integrate.py``.
+"""The insert pipeline — PyTorch port of ``chad_tsdf_tpu/core/integrate.py``
+(all but the ``sample_tile`` backend).
 
 Mirrors the reference hot path ``TSDFMap::insert`` (reference:
 src/chad/tsdf.cpp:39-75):
@@ -12,7 +12,7 @@ src/chad/tsdf.cpp:39-75):
   Octree::insert DDA  octree.hpp:92-152   ->  K1: DDA + sd + tile partials
   per-voxel upsert    octree.hpp:153-163  ->  directory update + K3 merge
 
-Four backends, chosen by ``MapConfig.accumulate_impl``:
+Five backends, chosen by ``MapConfig.accumulate_impl``:
 
 * ``fused`` (``auto`` on CUDA): :func:`insert_step_fused` — sort, normals,
   K1, then :func:`update_pool_tiled` (K3).  Samples beyond a tile's block
@@ -23,6 +23,15 @@ Four backends, chosen by ``MapConfig.accumulate_impl``:
   through K5.
 * ``xla`` (``auto`` on CPU): as ``pallas``, with the scatter-form
   accumulate.
+* ``seg`` (what ``TSDFMap`` dispatches sparse scans to on CUDA, under
+  ``auto``): :func:`insert_step_sparse_seg` — sample grids, one sort by
+  (block, offset), per-voxel integer sums, and a scatter of one entry per
+  unique voxel.  No tiles, no fallback, no kernel of its own beyond K2,
+  and no host read.
+
+:func:`insert_step_packed` takes the int16 scanner-relative points of
+``MapConfig.packed_ingest`` (:func:`pack_points`) and dequantizes them on
+the device before any of the above.
 
 :func:`update_pool` accumulates through K5 (``ops/accumulate.py``
 ``accumulate_segments``) under ``pallas`` and, for every backend but
@@ -36,7 +45,7 @@ one sort of <= block_capacity + touched_capacity keys) or sizes the work
 statically and masks (K3's and K5's grids).  The single host read per
 insert of the fused and tile paths is their total of uncovered samples,
 which decides whether the fallback runs; it is counted in the metrics as
-``host_reads``.
+``host_reads`` (0 under ``pallas``, ``xla`` and ``seg``).
 
 The state passed in is consumed: its pool planes are updated in place
 (the JAX package donates them), and the returned state shares them.
@@ -47,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import MapConfig
@@ -56,6 +66,15 @@ from ..ops import (accumulate, dda, fused_integrate, morton, normals,
 from .state import INT32_MAX, ActiveMapState
 
 SD_QUANT = tile_accum.SD_QUANT
+
+# profile_insert.py sets this to a callable(name) that it calls where a
+# stage of the sort-based and seg inserts ends; None costs one comparison
+STAGE_HOOK = None
+
+
+def _stage(name: str) -> None:
+    if STAGE_HOOK is not None:
+        STAGE_HOOK(name)
 
 
 class SampleBatch(NamedTuple):
@@ -159,6 +178,7 @@ def compute_sample_grids_soa(px, py, pz, sb, so, position, origin_blocks,
     """Normals + DDA over Morton-sorted points -> (K, N) sample grids."""
     nx, ny, nz = estimate_normals_dispatch(px, py, pz, sb, so, position,
                                            origin_blocks, config)
+    _stage("normals K2")
     return sample_grids(px, py, pz, nx, ny, nz, sb, position, origin_blocks,
                         config)
 
@@ -171,10 +191,12 @@ def compute_samples(points, n_points: int, position, origin_blocks,
         config)
     sb, so, px, py, pz = sort_points_soa(points[:, 0], points[:, 1],
                                          points[:, 2], bkey, okey)
+    _stage("keys + sort")
     s_bkey, s_okey, sd, _, samp_overflow = compute_sample_grids_soa(
         px, py, pz, sb, so, position, origin_blocks, config)
     payload = pack_payload(s_okey, sd, config.sdf_trunc)
     payload = torch.where(s_bkey != INT32_MAX, payload, 0)
+    _stage("DDA + payload")
     return SampleBatch(s_bkey.reshape(-1), payload.reshape(-1), pt_overflow,
                        samp_overflow)
 
@@ -399,6 +421,7 @@ def insert_step(state: ActiveMapState, points, n_points: int, position,
     n_points: number of valid rows; position: f32[3] scanner position.
     Returns (new_state, metrics dict of device scalars).
     """
+    _stage("host prep + upload")
     impl = _accumulate_impl(config, state.device)
     if impl == "fused":
         return insert_step_fused(state, points, n_points, position, config)
@@ -411,9 +434,186 @@ def insert_step(state: ActiveMapState, points, n_points: int, position,
         state, metrics = update_pool(state, sort_samples(batch), config)
         metrics["host_reads"] = 0
         return state, metrics
+    if impl == "seg":
+        return insert_step_sparse_seg(state, points, n_points, position,
+                                      config)
     raise NotImplementedError(
         f"accumulate_impl={impl!r} is not ported to PyTorch yet "
-        "(see ROADMAP.md); use 'auto', 'fused', 'tile', 'pallas' or 'xla'")
+        "(see ROADMAP.md); use 'auto', 'fused', 'tile', 'pallas', 'xla' or "
+        "'seg'")
+
+
+def pack_points(points: np.ndarray, position: np.ndarray,
+                sdf_res: float) -> np.ndarray:
+    """Host-side packing for :func:`insert_step_packed` (numpy, exact
+    round-half-even): i16[N, 3] scanner-relative fixed point with step
+    ``sdf_res / 8``.  Points beyond +-32767 steps of the scanner clamp —
+    they lie outside the local map extent anyway."""
+    step = sdf_res / 8.0
+    q = points.astype(np.float64)       # the one f64 buffer, updated in place
+    q -= np.asarray(position, np.float64)
+    q /= step
+    np.rint(q, out=q)
+    np.clip(q, -32767, 32767, out=q)
+    return q.astype(np.int16)
+
+
+def insert_step_packed(state: ActiveMapState, qpoints, n_points: int,
+                       position, config: MapConfig):
+    """Packed-ingest insert (``MapConfig.packed_ingest``): ``qpoints`` is
+    i16[N, 3] from :func:`pack_points`, half the bytes of the f32 cloud on
+    the way to the device; world points = q * step + position, computed
+    here on the device (a multiply and an add, each rounded to f32)."""
+    step = config.sdf_res / 8.0
+    pts = qpoints.to(torch.float32) * step + position[None, :]
+    return insert_step(state, pts, n_points, position, config)
+
+
+def sparse_seg_entry_stream(points, n_points: int, position, origin_blocks,
+                            config: MapConfig):
+    """Sparse-insert front half: one entry per UNIQUE VOXEL of one cloud.
+
+    Sort, segmented sum, compact.  Returns ``(e_b, e_okey, e_sd_q, e_w,
+    e_total, n_valid_samples, batch)``: the entry tensors are (S,) with
+    the live entries an ascending-(block, offset) prefix ``[:e_total]`` and
+    INT32_MAX block keys, zero sums and zero weights beyond.  ``e_sd_q``
+    (int64) is the voxel's sum of 16-bit signed-distance quanta and
+    ``e_w`` (int32) its sample count; :func:`seg_entries_update` scales
+    the sum to metres.
+
+    The samples are sorted once by ``bkey << 32 | payload``: the payload
+    (``offset << 16 | sd16``) is non-negative, so this is the JAX package's
+    two-key sort, and invalid samples (INT32_MAX, 0) come last.  The sums
+    are integer: an int64 running sum read at each voxel's last sample,
+    less its value at the previous voxel's.  Integer sums have no order,
+    so two runs are bit-equal, and they are exact for any number of
+    samples in a voxel (the JAX package carries the sum in f32, exact up
+    to 2^24 / 32767 = 512 samples a voxel).  Nothing here reads the device
+    from the host: the entries are compacted at the fixed capacity S.
+
+    A separate function so that a sharded map can route entry streams
+    (one consolidated entry per voxel) between shards.
+    """
+    batch = compute_samples(points, n_points, position, origin_blocks,
+                            config)
+    s = batch.bkey.shape[0]
+    dev = batch.bkey.device
+    key, _ = torch.sort((batch.bkey.to(torch.int64) << 32) |
+                        batch.payload.to(torch.int64))
+    sb = (key >> 32).to(torch.int32)
+    valid = sb != INT32_MAX
+    n_valid_samples = valid.sum(dtype=torch.int32)
+    okey = ((key >> 16) & 0x1FF).to(torch.int32)
+    q = ((key << 48) >> 48)                      # sign-extended sd16, int64
+    _stage("2-key sort")
+
+    # a voxel ends where the next sample has another (block, offset) — the
+    # step from the last valid sample to the first invalid one included
+    vkey = key >> 16
+    is_end = torch.ones(s, dtype=torch.bool, device=dev)
+    is_end[:-1] = vkey[1:] != vkey[:-1]
+    live_end = is_end & valid
+    run = torch.cumsum(torch.where(valid, q, 0), 0)
+    _stage("segmented sum")
+
+    # valid samples are a prefix of the stream, so voxel j starts right
+    # after voxel j - 1 ends: sums and counts are differences at the ends
+    end_pos, _, e_total = segops.compact_flag_positions(live_end, s)
+    ev = torch.arange(s, dtype=torch.int32, device=dev) < e_total
+    at = torch.clamp(end_pos, max=s - 1)
+    run_end = run[at]
+    prev_run = torch.zeros_like(run_end)
+    prev_run[1:] = run_end[:-1]
+    prev_pos = torch.full_like(end_pos, -1)
+    prev_pos[1:] = end_pos[:-1]
+    e_b = torch.where(ev, sb[at], INT32_MAX)
+    e_okey = torch.where(ev, okey[at], 0)
+    e_sd_q = torch.where(ev, run_end - prev_run, 0)
+    e_w = torch.where(ev, end_pos - prev_pos, 0)
+    _stage("compaction")
+    return e_b, e_okey, e_sd_q, e_w, e_total, n_valid_samples, batch
+
+
+def seg_entries_update(state: ActiveMapState, pool_sd, pool_w, e_b, e_okey,
+                       e_sd_q, e_w, config: MapConfig):
+    """Sparse-insert back half: directory update and pool scatter over a
+    block-sorted entry stream, IN PLACE on ``pool_sd`` / ``pool_w``.
+
+    ``e_b`` must be ascending with INT32_MAX marking dead entries (a merged
+    stream of several clouds works unchanged).  ``e_sd_q`` is in 16-bit
+    quanta; the scaling to metres happens here.  Returns ``(pool_sd,
+    pool_w, dir_keys, dir_slots, n_blocks, t_count, n_new, block_overflow,
+    touched_overflow)``.
+
+    The scatter is one ``index_add_`` per plane.  Dead entries (padding,
+    blocks beyond a capacity) add zero into the reserved row, spread over
+    its 512 elements so that they do not queue on one address; an index
+    outside the pool would be a device-side assert on CUDA, not a dropped
+    write.  The entries of one cloud are unique per (block, offset), so
+    each live element gets one addend and the result does not depend on
+    the order of the adds; duplicate entries are legal and sum.
+    """
+    cb = config.block_capacity
+    e_cap = e_b.shape[0]
+    # each entry opens at most one block, so touched capacity beyond the
+    # stream's length is dead shape
+    t_cap = min(config.touched_capacity, e_cap)
+    reserved_row = cb - 1
+    flags, _, t_count, touched_overflow, tvalid, tb_keys = _touched_blocks(
+        e_b, t_cap)
+    (dir_keys, dir_slots, n_blocks, tb_slots, n_new,
+     block_overflow) = _directory_update(state, tb_keys, tvalid, config)
+    e_slot, kept = _slot_per_entry(flags, tb_slots, t_cap, reserved_row)
+    _stage("directory")
+
+    ok = (e_b != INT32_MAX) & kept
+    lane = torch.arange(e_cap, dtype=torch.int64, device=e_b.device) & 511
+    idx = torch.where(ok, e_slot.to(torch.int64) * 512 + e_okey,
+                      reserved_row * 512 + lane)
+    e_sd = e_sd_q.to(torch.float32) * (config.sdf_trunc / SD_QUANT)
+    pool_sd.view(-1).index_add_(0, idx, torch.where(ok, e_sd, 0.0))
+    pool_w.view(-1).index_add_(0, idx,
+                               torch.where(ok, e_w, 0).to(torch.float32))
+    _stage("scatter")
+    return (pool_sd, pool_w, dir_keys, dir_slots, n_blocks, t_count, n_new,
+            block_overflow, touched_overflow)
+
+
+def insert_step_sparse_seg(state: ActiveMapState, points, n_points: int,
+                           position, config: MapConfig):
+    """Sparse-cloud insert: voxel-sorted segment sums, then a scatter of
+    one entry per unique voxel — no tiles, no fallback, ``tile_overflow``
+    untouched, and no host read.
+
+    LiDAR-shaped clouds (a dozen points per block, a few samples per voxel)
+    overflow every per-point tile's block list, so the tiled backends send
+    them through their fallback.  This path reduces first and scatters
+    last (:func:`sparse_seg_entry_stream`, :func:`seg_entries_update`), in
+    plain tensor operations.  The JAX package picks an entry bucket of
+    S/4 .. S by the live count to shorten its scatter; that choice reads
+    the count on the host and does not change the result (the entries are
+    a prefix), so the port runs the one capacity S.
+
+    Replaces the reference's per-sample hashmap upsert (octree.hpp:153-163)
+    at its outdoor-LiDAR operating point.
+    """
+    (e_b, e_okey, e_sd_q, e_w, _, n_valid_samples,
+     batch) = sparse_seg_entry_stream(points, n_points, position,
+                                      state.origin_blocks, config)
+    (pool_sd, pool_w, dir_keys, dir_slots, n_blocks, t_count, n_new,
+     block_overflow, touched_overflow) = seg_entries_update(
+        state, state.pool_sd, state.pool_w, e_b, e_okey, e_sd_q, e_w, config)
+    new_state = dataclasses.replace(
+        state, dir_keys=dir_keys, dir_slots=dir_slots, n_blocks=n_blocks,
+        pool_sd=pool_sd, pool_w=pool_w,
+        point_overflow=state.point_overflow + batch.pt_overflow,
+        sample_overflow=state.sample_overflow + batch.samp_overflow,
+        block_overflow=state.block_overflow + block_overflow,
+        touched_overflow=state.touched_overflow + touched_overflow)
+    metrics = {"n_valid_samples": n_valid_samples,
+               "n_touched_blocks": t_count, "n_new_blocks": n_new,
+               "n_blocks": n_blocks, "host_reads": 0}
+    return new_state, metrics
 
 
 def _fallback(state: ActiveMapState, s_bkey, s_okey, sd, ovfmask,

@@ -5,7 +5,10 @@ include/chad/tsdf.hpp:21-171, src/chad/tsdf.cpp:26-86):
 
 * ``insert(points, position)``: submap rotation after ``submap_distance``
   of travel (tsdf.cpp:46-61), then the sort -> normals -> DDA -> integrate
-  pipeline of core/integrate.py on the map's device;
+  pipeline of core/integrate.py on the map's device.  A rotation only
+  stashes the rotated-out state (core/submap.py ``start_finalize``); its
+  read-back and DAG build wait for the next drain (``save``, ``stats``,
+  ``finalize_active``, or ``max_pending_finalize`` stubs);
 * ``save(filename)``: snapshot the active submap into the DAG, mesh the
   union of all submaps with host marching cubes and write a PLY
   (tsdf.cpp:76-86).  As in the JAX package, save() is idempotent and
@@ -14,16 +17,19 @@ include/chad/tsdf.hpp:21-171, src/chad/tsdf.cpp:26-86):
 The map runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``; without a card the default raises rather
 than falling back to the CPU.  ``accumulate_impl`` may be ``auto``,
-``fused``, ``tile``, ``pallas`` or ``xla`` (core/integrate.py).  Not ported yet (ROADMAP.md):
-the sparse ``seg`` and ``sample_tile`` backends, packed ingest, carving,
-deferred rotation, device marching cubes, the ``.grid`` dump,
-raycast/merge/leaf_arrays/stats and loop closure; the options that select
-them raise NotImplementedError.
+``fused``, ``tile``, ``pallas``, ``xla`` or ``seg`` (core/integrate.py);
+under ``auto`` on CUDA each scan goes to the dense ``fused`` backend or,
+below ``sparse_points_per_block``, to ``sparse_impl``.
+``packed_ingest`` sends int16 points to the device.  Not ported yet
+(ROADMAP.md): the ``sample_tile`` backend, carving, device marching cubes,
+the ``.grid`` dump, raycast/merge/leaf_arrays and loop closure; the options
+that select them raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import collections.abc
+import dataclasses
 import time
 import warnings
 
@@ -86,17 +92,15 @@ class LazyMetrics(collections.abc.MutableMapping):
 
 def _check_ported(config: MapConfig) -> None:
     missing = []
-    if config.packed_ingest:
-        missing.append("packed_ingest")
     if config.carve_steps > 0:
         missing.append("carve_steps")
     if config.save_grid:
         missing.append("save_grid")
     if config.mesh_impl == "device":
         missing.append("mesh_impl='device'")
-    if config.accumulate_impl not in ("auto", "fused", "tile", "pallas",
-                                      "xla"):
-        missing.append(f"accumulate_impl={config.accumulate_impl!r}")
+    for name in ("accumulate_impl", "sparse_impl"):
+        if getattr(config, name) == "sample_tile":
+            missing.append(f"{name}='sample_tile'")
     if missing:
         raise NotImplementedError(
             f"not ported to PyTorch yet (see ROADMAP.md): {missing}")
@@ -108,7 +112,6 @@ class TSDFMap:
         if config is None:
             config = MapConfig(sdf_res=sdf_res, sdf_trunc=sdf_trunc)
         elif (sdf_res, sdf_trunc) != (config.sdf_res, config.sdf_trunc):
-            import dataclasses
             config = dataclasses.replace(config, sdf_res=sdf_res,
                                          sdf_trunc=sdf_trunc)
         _check_ported(config)
@@ -116,6 +119,7 @@ class TSDFMap:
         self.device = resolve_device(device)
         self.levels = dag.NodeLevels()
         self.submaps: list[submap_mod.Submap] = []
+        self._pending: list[submap_mod.PendingSubmap] = []
         self.state = None
         self._positions: list[np.ndarray] = []
         self._active_snapshot: submap_mod.Submap | None = None
@@ -124,8 +128,8 @@ class TSDFMap:
     # ------------------------------------------------------------------
     @property
     def n_submaps(self) -> int:
-        """Finalized submaps."""
-        return len(self.submaps)
+        """Finalized submaps, including rotations still materializing."""
+        return len(self.submaps) + len(self._pending)
 
     @property
     def sdf_res(self) -> float:
@@ -173,9 +177,16 @@ class TSDFMap:
                 chunk = np.concatenate(
                     [chunk, np.zeros((bucket - n, 3), np.float32)])
             cfg = self._dispatch_config(points[beg:beg + cap])
-            self.state, metrics = integrate.insert_step(
-                self.state, torch.from_numpy(chunk).to(self.device), n,
-                pos_t, cfg)
+            if self.config.packed_ingest:
+                # the int16 array is what crosses to the device
+                q = integrate.pack_points(chunk, position, cfg.sdf_res)
+                self.state, metrics = integrate.insert_step_packed(
+                    self.state, torch.from_numpy(q).to(self.device), n, pos_t,
+                    cfg)
+            else:
+                self.state, metrics = integrate.insert_step(
+                    self.state, torch.from_numpy(chunk).to(self.device), n,
+                    pos_t, cfg)
             for k, v in metrics.items():
                 metrics_acc[k] = (metrics_acc[k] + v) if k in metrics_acc \
                     else v
@@ -234,10 +245,25 @@ class TSDFMap:
             pass
 
     def _dispatch_config(self, chunk: np.ndarray) -> MapConfig:
-        """The JAX package picks the sparse ``seg`` backend per scan on the
-        TPU; that backend is not ported, so every scan takes the config's
-        own backend — what the JAX package does off the TPU."""
-        return self.config
+        """Pick the accumulate backend per scan under ``auto`` (on CUDA
+        only, where the JAX package does it on the TPU): the fused tile
+        kernels pay off on dense clouds (many points per touched block);
+        sparse outdoor scans run ``sparse_impl`` (``seg``: voxel-sorted
+        segment sums and a scatter of unique voxels, no tile overflow by
+        construction).  The density is estimated on the host from a
+        subsample: one cheap ``np.unique`` per insert."""
+        if (self.config.accumulate_impl != "auto"
+                or self.device.type != "cuda" or len(chunk) == 0):
+            return self.config
+        stride = max(1, len(chunk) // 8192)
+        sub = chunk[::stride]
+        block = np.floor(sub / (8.0 * self.config.sdf_res)).astype(np.int64)
+        key = (block[:, 0] << 42) ^ (block[:, 1] << 21) ^ block[:, 2]
+        density = stride * len(sub) / max(1, np.unique(key).shape[0])
+        if density >= self.config.sparse_points_per_block:
+            return self.config
+        return dataclasses.replace(self.config,
+                                   accumulate_impl=self.config.sparse_impl)
 
     def _start_submap(self, position: np.ndarray) -> None:
         origin = origin_blocks_for_position(position, self.config)
@@ -252,13 +278,28 @@ class TSDFMap:
         return a
 
     def _finalize_active(self) -> None:
-        """Rotation: finalize the active map into a submap now (synchronous
-        in this port; deferred rotation is not ported yet)."""
-        sm = submap_mod.finalize(self.state, self.levels, self.config,
-                                 self._positions)
-        sm.anchor = self._anchor_from(self._positions)
-        self.submaps.append(sm)
-        self._checked_at_insert = getattr(self, "_n_inserts", 0)
+        """Deferred rotation: stash the rotated-out device state
+        (``submap_mod.start_finalize``: no host read, no device work on the
+        stream); counter read-back, compaction, transfer and DAG build all
+        happen at :meth:`_drain_pending`."""
+        self._pending.append(submap_mod.start_finalize(
+            self.state, self.config, self._positions,
+            anchor=self._anchor_from(self._positions)))
+        # bound the device memory the stubs hold (a whole pool each); the
+        # oldest has waited longest
+        while len(self._pending) > self.config.max_pending_finalize:
+            self.submaps.append(
+                self._pending.pop(0).finish(self.levels, self.config))
+
+    def _drain_pending(self) -> None:
+        """Materialize all pending (rotated-out) submaps, in order.  All
+        device->host copies are started first, so the transfer of submap
+        k + 1 overlaps the host DAG build of submap k."""
+        for p in self._pending:
+            p.start_copies()
+        while self._pending:
+            self.submaps.append(
+                self._pending.pop(0).finish(self.levels, self.config))
 
     def _active_nonempty(self) -> bool:
         return self.state is not None and int(self.state.n_blocks) > 0
@@ -268,6 +309,7 @@ class TSDFMap:
         rotation step of tsdf.cpp:46-61, callable explicitly)."""
         if self._active_nonempty():
             self._finalize_active()
+        self._drain_pending()
         self.state = None
         self._positions = []
         self._active_snapshot = None
@@ -277,6 +319,7 @@ class TSDFMap:
         """Finalized submaps plus a cached snapshot of the active one,
         consed into throwaway levels so repeated save() calls never grow
         the persistent ``self.levels``."""
+        self._drain_pending()
         out = list(self.submaps)
         if self._active_nonempty():
             if self._active_snapshot is None:
@@ -349,3 +392,22 @@ class TSDFMap:
         self.last_metrics["sub_fin_ms"] = t_fin * 1e3
         self.last_metrics["mesh_ms"] = t_mesh * 1e3
         write_ply(filename, mesh)
+
+    def stats(self) -> dict:
+        """DAG compression counters, finalized submaps and, for the active
+        map, its blocks and overflow counters.  Drains pending rotations
+        and reads the device."""
+        self._warn_overflow()
+        self._drain_pending()
+        s = self.levels.stats()
+        s["n_submaps"] = len(self.submaps)
+        if self.state is not None:
+            s["active_blocks"] = int(self.state.n_blocks)
+            s["overflow"] = {
+                "points": int(self.state.point_overflow),
+                "samples": int(self.state.sample_overflow),
+                "blocks": int(self.state.block_overflow),
+                "touched": int(self.state.touched_overflow),
+                "tile": int(self.state.tile_overflow),
+            }
+        return s

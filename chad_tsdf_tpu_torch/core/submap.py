@@ -1,5 +1,5 @@
 """Submap finalization: active block pool -> compressed dual DAG — PyTorch
-port of the synchronous ``finalize`` of ``chad_tsdf_tpu/core/submap.py``.
+port of ``chad_tsdf_tpu/core/submap.py`` (the single-device half).
 
 Replaces the reference's post-order DFS over the active octree (reference:
 include/chad/detail/submap.hpp:10-106):
@@ -12,16 +12,18 @@ include/chad/detail/submap.hpp:10-106):
   group-by-parent-prefix + hash-consed adds into the shared
   ``core/dag.py`` ``NodeLevels`` (numpy, or the native C++ runtime).
 
-In this port a rotation finalizes synchronously: the JAX package's
-deferred rotation (``start_finalize`` / ``PendingSubmap``) is not ported
-yet, so a rotation reads back the counters and the compacted clusters at
-once.  The weight clamp uses min (the intent), not the reference's
-always-255 ``std::max`` (submap.hpp:92-93).
+:func:`finalize` does all of it at once (the snapshot of the active map at
+``save``).  A rotation mid-stream is deferred: :func:`start_finalize` only
+stashes the rotated-out state in a :class:`PendingSubmap`, and the counter
+read-back, the compaction, the device->host copy and the DAG build happen
+at the map's next drain.  The weight clamp uses min (the intent), not the
+reference's always-255 ``std::max`` (submap.hpp:92-93).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -199,6 +201,144 @@ def finalize(state: ActiveMapState, levels: NodeLevels, config: MapConfig,
     warn_on_overflow(state)
     codes, words_t, words_w, n_vox = extract_clusters(state, config)
     return build_submap(levels, codes, words_t, words_w, positions, n_vox)
+
+
+# ---------------------------------------------------------------------------
+# Deferred (stream-friendly) finalization
+# ---------------------------------------------------------------------------
+
+# per CUDA device: the side stream of the stubs' device->host copies
+_COPY_STREAMS: dict = {}
+
+_LOSSY = ("point_overflow", "sample_overflow", "block_overflow",
+          "touched_overflow")
+
+
+def _rotation_counters(state: ActiveMapState, cb: int):
+    """Everything the host needs of a rotated-out map, in ONE tensor (one
+    transfer): i32[9] = [n_blocks, live clusters, point / sample / block /
+    touched overflow, origin_blocks x y z]."""
+    count = _count_nonempty_clusters(state, cb)
+    return torch.cat([
+        torch.stack([state.n_blocks, count] +
+                    [getattr(state, k) for k in _LOSSY]),
+        state.origin_blocks])
+
+
+@dataclasses.dataclass
+class PendingSubmap:
+    """A rotated-out active map awaiting host materialization.
+
+    A rotation mid-stream must not stall the inserts: any read of the
+    rotated-out state waits for every insert queued before it.  So
+    :func:`start_finalize` only stashes the state in this stub; the counter
+    read-back, the right-sized compaction and the transfer happen off the
+    stream at the next drain (``save`` / ``stats`` / ``finalize_active``,
+    or when ``MapConfig.max_pending_finalize`` stubs pile up).  Until then
+    the stub keeps the whole pool (2 x block_capacity x 512 f32) alive in
+    device memory, which ``max_pending_finalize`` bounds.
+
+    The compacted buffer crosses to the host on a side stream that first
+    waits for the stream it was built on, into pinned memory, and
+    ``copy_done`` is recorded behind it: :meth:`host_buf` waits for that
+    event before numpy reads the memory.  On the CPU it is the buffer
+    itself.
+    """
+    buf: object                # device buffer (None for an empty map)
+    n_pad: int
+    cap: int
+    count: int
+    origin_blocks: np.ndarray | None
+    positions: list
+    anchor: object = None
+    raw_state: object = None   # rotated-out ActiveMapState, on its device
+    config: object = None      # MapConfig, to materialize off the stream
+    host: object = None        # the buffer on the host, once copied
+    copy_done: object = None   # CUDA event behind the copy
+
+    def _materialize_device(self) -> None:
+        """Counter read-back and right-sized device compaction; releases
+        the stashed state."""
+        if self.raw_state is None:
+            return
+        state, config = self.raw_state, self.config
+        vals = _rotation_counters(state, config.block_capacity).cpu().numpy()
+        n_blocks, count = int(vals[0]), int(vals[1])
+        ovf = {k: int(v) for k, v in zip(_LOSSY, vals[2:6]) if int(v) > 0}
+        if ovf:
+            warnings.warn(
+                f"map capacity overflow — dropped data: {ovf}; raise the "
+                "corresponding MapConfig capacities (block_capacity/"
+                "touched_capacity/max_points) or shrink the scan extent",
+                RuntimeWarning, stacklevel=4)
+        self.origin_blocks = vals[6:9].astype(np.int32)
+        if n_blocks == 0 or count == 0:
+            self.buf, self.count = None, 0
+        else:
+            self.n_pad = max(1, 1 << (n_blocks - 1).bit_length())
+            self.cap = cap_bucket(count)
+            self.count = count
+            self.buf = _extract_clusters_compact(state, self.n_pad,
+                                                 self.cap, config.sdf_trunc)
+        self.raw_state = None          # release the pool
+
+    def start_copies(self) -> None:
+        self._materialize_device()
+        if self.buf is None or self.host is not None:
+            return
+        if self.buf.device.type != "cuda":
+            self.host = self.buf
+            return
+        dev = self.buf.device
+        side = _COPY_STREAMS.get(dev)
+        if side is None:
+            side = _COPY_STREAMS[dev] = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        self.host = torch.empty(self.buf.shape, dtype=self.buf.dtype,
+                                pin_memory=True)
+        with torch.cuda.stream(side):
+            self.host.copy_(self.buf, non_blocking=True)
+            self.copy_done = torch.cuda.Event()
+            self.copy_done.record(side)
+
+    def host_buf(self) -> np.ndarray:
+        """The compacted buffer as numpy uint32, once its copy is done."""
+        self.start_copies()
+        if self.copy_done is not None:
+            self.copy_done.synchronize()
+        return self.host.numpy().astype(np.uint32)
+
+    def finish(self, levels: NodeLevels, config: MapConfig) -> Submap:
+        self._materialize_device()
+        return finish_finalize(self, levels, config)
+
+
+def start_finalize(state: ActiveMapState, config: MapConfig,
+                   positions: list, anchor=None) -> PendingSubmap:
+    """Begin finalizing the active map with no host read and no device
+    work: stash the rotated-out state (see :class:`PendingSubmap`).  Even
+    the compaction would need the counters to size its buffer, and reading
+    them waits for every queued insert."""
+    return PendingSubmap(None, 0, 0, -1, None, list(positions), anchor,
+                         raw_state=state, config=config)
+
+
+def finish_finalize(pending: PendingSubmap, levels: NodeLevels,
+                    config: MapConfig) -> Submap:
+    """Materialize a PendingSubmap into the DAG (host)."""
+    if pending.buf is None:
+        z = np.zeros(0, np.uint64)
+        sm = build_submap(levels, z, z.copy(), z.copy(), pending.positions,
+                          0)
+    else:
+        codes, words_t, words_w, n_vox = _unpack_cluster_buf(
+            pending.host_buf(), pending.n_pad, pending.cap, pending.count,
+            pending.origin_blocks, config)
+        sm = build_submap(levels, codes, words_t, words_w,
+                          pending.positions, n_vox)
+        pending.buf = None
+    sm.anchor = pending.anchor
+    return sm
 
 
 def _add_empty_chain(levels: NodeLevels) -> int:

@@ -1,7 +1,8 @@
-"""Where the time of one dense insert goes, on one device.
+"""Where the time of one insert goes, on one device.
 
     python3 -m chad_tsdf_tpu_torch.profile_insert            # on the H100
     python3 -m chad_tsdf_tpu_torch.profile_insert --device cpu --points 8192
+    python3 -m chad_tsdf_tpu_torch.profile_insert --workload kitti
 
 Three measurements of the 2^20-point r = 5 m sphere insert (bench.py's
 cloud, seed 420) at the default ``MapConfig``:
@@ -15,6 +16,15 @@ cloud, seed 420) at the default ``MapConfig``:
 3. K2 against its plain version on a dense-voxel cloud: ``--points``
    points in clusters of ``--segment`` points that each lie in one voxel,
    so one segment spans many of K2's 1024-point tiles at every depth.
+
+``--workload kitti`` takes 1 and 2 on one KITTI-shaped scan
+(``io/kitti.py`` ``synthetic_lidar_scan``, seed 0) at the streaming
+configuration of ``scripts/kitti_stream.py``, dispatched to the sparse
+``seg`` backend as on the card (``--device cpu`` forces it): the stages
+are keys + sort, normals (K2), DDA + payload, the 2-key sort, the segmented
+sum, compaction, directory and scatter, marked through
+``core.integrate.STAGE_HOOK``, and everything ``TSDFMap.insert`` does before
+them on the host (padding, packing, the density estimate, the upload).
 
 The last line is a JSON object with the numbers of 1-3.  The module also
 holds the test clouds and K5's input tables that ``chip_smoke.py`` and the
@@ -155,10 +165,11 @@ def sync(device: torch.device):
         torch.cuda.synchronize()
 
 
-def profile_inserts(pts: np.ndarray, device: torch.device, reps: int):
+def profile_inserts(pts: np.ndarray, device: torch.device, reps: int,
+                    config: MapConfig | None = None, position=None):
     from torch.profiler import ProfilerActivity, profile
-    m = TSDFMap(0.05, 0.1, device=device)
-    origin = np.zeros(3, np.float32)
+    m = TSDFMap(0.05, 0.1, config=config, device=device)
+    origin = np.zeros(3, np.float32) if position is None else position
     for _ in range(2):
         m.insert(pts, origin)
     sync(device)
@@ -229,6 +240,34 @@ def stage_times(pts: np.ndarray, device: torch.device):
             for i, k in enumerate(names)}
 
 
+def seg_stage_times(pts: np.ndarray, position: np.ndarray,
+                    config: MapConfig, device: torch.device):
+    """Median per-stage ms over 5 inserts of one scan through
+    ``TSDFMap.insert`` (after 2 warm-ups), the stages marked where
+    ``core/integrate.py`` calls its ``STAGE_HOOK``; "host prep + upload" is
+    what ``insert`` does before ``insert_step``."""
+    m = TSDFMap(config=config, device=device)
+    runs = []
+    for i in range(7):
+        sw = Stopwatch(device)
+        names = []
+
+        def hook(name):
+            names.append(name)
+            sw.mark()
+
+        integrate.STAGE_HOOK = hook
+        try:
+            sw.mark()
+            m.insert(pts, position)
+        finally:
+            integrate.STAGE_HOOK = None
+        if i >= 2:
+            runs.append(sw.spans_ms())
+    return {k: statistics.median(r[j] for r in runs)
+            for j, k in enumerate(names)}
+
+
 def sorted_cloud(pts: np.ndarray, cfg: MapConfig, device: torch.device,
                  n_valid: int | None = None):
     """(sb, so, px, py, pz): the cloud's points on ``device``, Morton-sorted
@@ -279,12 +318,31 @@ def k2_dense_voxels(n: int, segment: int, device: torch.device):
     return out
 
 
+def kitti_main(device: torch.device, reps: int) -> int:
+    from .io.kitti import synthetic_lidar_scan
+    from .scripts.kitti_stream import stream_config
+    pts = synthetic_lidar_scan([0.0, 0.0, 0.0], seed=0)
+    pos = np.float32([0.0, 0.0, 1.7])
+    cfg = stream_config()
+    if device.type != "cuda":          # no density dispatch off the card
+        cfg = dataclasses.replace(cfg, accumulate_impl=cfg.sparse_impl)
+    res = {"points": int(pts.shape[0]),
+           "profile": profile_inserts(pts, device, reps, cfg, pos)}
+    print("profile:", json.dumps(res["profile"]), flush=True)
+    res["stages_ms"] = seg_stage_times(pts, pos, cfg, device)
+    print("stages:", json.dumps(res["stages_ms"]), flush=True)
+    print(json.dumps(res))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--points", type=int, default=1 << 20)
     ap.add_argument("--segment", type=int, default=16384)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--workload", choices=("sphere", "kitti"),
+                    default="sphere")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -292,6 +350,8 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip(), flush=True)
+    if args.workload == "kitti":
+        return kitti_main(device, args.reps)
     pts = sphere(args.points, 5.0, 420)
     res = {"profile": profile_inserts(pts, device, args.reps)}
     print("profile:", json.dumps(res["profile"]), flush=True)

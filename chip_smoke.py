@@ -40,15 +40,31 @@ runs, failing with a non-zero exit on the first error:
    fused path;
 7. the microbenchmarks' own timing runs at their full sizes
    (``chad_tsdf_tpu_torch.scripts``), then each held once more against its
-   plain version at that size.
+   plain version at that size;
+8. the sparse streaming path at full width: bench.py's KITTI-shaped stream
+   (``chad_tsdf_tpu_torch.scripts.kitti_stream``: 12 scans of ~120k points
+   1.5 m apart, ``MapConfig(block_capacity=1 << 16, touched_capacity=
+   1 << 15, packed_ingest=True)``), its scans/s, points/s and
+   ``tile_overflow``; every scan must be dispatched to ``seg``, read
+   nothing on the host, launch K2 once and no other kernel, overflow
+   nothing and leave 2 deferred rotations behind; K2 against its plain
+   version on one sorted scan; the same stream under ``sparse_impl`` =
+   ``seg``, ``pallas`` and ``fused`` in turns (median scans/s of each), the
+   three final maps equal to each other, rotated-out submaps included;
+   ``seg`` against the scatter backend and packed against f32 ingest on one
+   scan; two ``seg`` streams bit-equal in pools and DAG counters, and a
+   stream drained after every insert equal to the deferred one.
 
 Launch counts are reset just before the dense inserts of phase 3 and read
 right after them: K1, K2 and K3 must have launched there and K4 not.  They
 are reset again just before phase 4's sparse insert, where K4 and K5 must
-launch, and just before phase 7's timing runs, where M1-M3 must launch.
+launch, just before phase 7's timing runs, where M1-M3 must launch, and
+just before phase 8's stream, where K2 must launch once per insert and K1,
+K3, K4 and K5 not at all.
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
-for K4-K5, phase 7 for M1-M3, with its time, its plain version's time, the
+for K4-K5, phase 7 for M1-M3 (and, as ``launches_stream``, in the 12 inserts
+of phase 8's ``seg`` stream), with its time, its plain version's time, the
 library call's time (or null) and ``bound_ms``: the least time the H100
 could take for the same work on this run's inputs, the larger of the bytes
 the function must move (each input read once, each output written once)
@@ -538,21 +554,185 @@ def pool_of(m):
     return s.dir_keys, s.pool_sd, s.pool_w
 
 
-def same_map(a, b, what):
-    """Require equal directories and, through each map's slots, equal
+def same_state(sa, sb, what):
+    """Require equal directories and, through each state's slots, equal
     weights and sd within SD_TOL per weight; returns the sd error."""
-    require(torch.equal(a.state.dir_keys, b.state.dir_keys),
-            f"{what}: dir_keys differ")
-    nb = int(b.state.n_blocks)
-    require(int(a.state.n_blocks) == nb, f"{what}: n_blocks differ")
-    sl_a = a.state.dir_slots[:nb].long()
-    sl_b = b.state.dir_slots[:nb].long()
-    require(torch.equal(a.state.pool_w[sl_a], b.state.pool_w[sl_b]),
+    require(torch.equal(sa.dir_keys, sb.dir_keys), f"{what}: dir_keys differ")
+    nb = int(sb.n_blocks)
+    require(int(sa.n_blocks) == nb, f"{what}: n_blocks differ")
+    sl_a = sa.dir_slots[:nb].long()
+    sl_b = sb.dir_slots[:nb].long()
+    require(torch.equal(sa.pool_w[sl_a], sb.pool_w[sl_b]),
             f"{what}: weights differ")
-    err = sd_err_per_weight(a.state.pool_sd[sl_a], b.state.pool_sd[sl_b],
-                            b.state.pool_w[sl_b])
+    err = sd_err_per_weight(sa.pool_sd[sl_a], sb.pool_sd[sl_b],
+                            sb.pool_w[sl_b])
     require(err < SD_TOL, f"{what}: sd error {err}")
     return err
+
+
+def same_map(a, b, what):
+    """:func:`same_state` on two maps' active states and, pairwise, on the
+    rotated-out states their pending submaps still hold; returns the
+    largest sd error."""
+    require(len(a._pending) == len(b._pending),
+            f"{what}: pending submaps differ")
+    pairs = [(a.state, b.state, "active")] + [
+        (p.raw_state, q.raw_state, f"rotated-out {i}")
+        for i, (p, q) in enumerate(zip(a._pending, b._pending))]
+    return max(same_state(x, y, f"{what} ({name})") for x, y, name in pairs)
+
+
+def bit_equal_maps(a, b, what):
+    """Require bit-equal directories and pools, active and rotated-out."""
+    states = lambda m: [m.state] + [p.raw_state for p in m._pending]
+    require(len(a._pending) == len(b._pending),
+            f"{what}: pending submaps differ")
+    for x, y in zip(states(a), states(b)):
+        for f in ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w"):
+            require(torch.equal(getattr(x, f), getattr(y, f)),
+                    f"{what}: {f} not bit-equal")
+
+
+def run_stream(cfg):
+    """Phase 8: the KITTI-shaped stream and its checks; returns the launch
+    counts of the ``seg`` stream and K2's result on one scan."""
+    from chad_tsdf_tpu_torch import MapConfig, TSDFMap, kernels
+    from chad_tsdf_tpu_torch.ops import accumulate
+    from chad_tsdf_tpu_torch.profile_insert import sorted_cloud
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+
+    dev = torch.device("cuda")
+    scans = ks.make_scans()
+    scfg = ks.stream_config()
+    rotations = ks.expected_rotations(scans, scfg)
+    require(rotations == 2, f"the stream's policy gives {rotations} rotations")
+    sizes = [int(p.shape[0]) for p, _ in scans]
+    bucket = next(b for b in scfg.buckets if b >= max(sizes))
+
+    # K2 on one sorted KITTI-shaped scan, padded to its bucket (with points
+    # of the scan, marked as padding: a padding point at the scanner's own
+    # position has no view direction to orient a normal by)
+    pad = np.resize(scans[0][0], (bucket, 3))
+    rk2, _ = check_k2(cfg, f"KITTI-shaped scan, {sizes[0]} of {bucket} points",
+                      *sorted_cloud(pad, cfg, dev, sizes[0]), time_it=True)
+
+    # bench.py's run: warm pass + stats(), then the timed region
+    out = ks.kitti_shaped_stream(device="cuda", config=scfg)
+    log(f"phase 8 stream (sparse_impl seg): {json.dumps(out)}; scans of "
+        f"{min(sizes)}-{max(sizes)} points in the {bucket} bucket, "
+        f"S = {bucket * scfg.dda_steps}")
+    require(out["kitti_tile_overflow"] == 0,
+            f"kitti_tile_overflow {out['kitti_tile_overflow']}")
+
+    # the three sparse backends in turns; the first round warms each
+    rates = {"seg": [], "pallas": [], "fused": []}
+    maps, stream_launches = {}, None
+    for rnd in range(4):
+        for impl in rates:
+            c = ks.stream_config(sparse_impl=impl)
+            kernels.reset_launches()
+            m, dt, n_pts, metrics, reads = ks.timed_stream(scans, c, "cuda")
+            launches = dict(kernels.LAUNCHES)
+            require(not accumulate.overflowed("cuda"),
+                    f"K5 chunk list overflowed on the {impl} stream")
+            backends = {m._dispatch_config(p).accumulate_impl
+                        for p, _ in scans}
+            require(backends == {impl},
+                    f"scans dispatched to {backends}, not {impl}")
+            require(m.n_submaps == rotations and
+                    len(m._pending) == rotations and not m.submaps,
+                    f"{impl}: {m.n_submaps} submaps, {len(m._pending)} "
+                    f"pending; the policy gives {rotations} deferred")
+            host_reads = {int(x["host_reads"]) for x in metrics}
+            if impl == "seg":
+                require(reads == {} and host_reads == {0},
+                        f"seg inserts read the host: {reads}, {host_reads}")
+                require(launches["estimate_normals"] == len(scans),
+                        f"K2 launched {launches['estimate_normals']} times "
+                        f"in {len(scans)} seg inserts")
+                for name in ("fused_tile_partials", "merge_partials",
+                             "tile_partials", "accumulate_segments"):
+                    require(launches[name] == 0,
+                            f"{name} launched on the seg stream")
+                stream_launches = launches
+            if rnd > 0:
+                rates[impl].append((len(scans) - 1) / dt)
+            if impl in maps and impl == "seg":
+                bit_equal_maps(m, maps[impl], "two seg streams")
+            maps[impl] = m
+            if rnd == 3:
+                log(f"phase 8 {impl}: {statistics.median(rates[impl]):.2f} "
+                    f"scans/s median of "
+                    f"{[round(r, 2) for r in rates[impl]]}, "
+                    f"{n_pts / dt:.0f} points/s in the last round; host "
+                    f"reads/insert {sorted(host_reads)} (counted calls "
+                    f"{reads}); launches in 12 inserts {launches}")
+        torch.cuda.empty_cache()
+    for impl in ("pallas", "fused"):
+        err = same_map(maps[impl], maps["seg"], f"stream {impl} vs seg")
+        log(f"phase 8 {impl} vs seg: directories and weights equal on the "
+            f"active and {rotations} rotated-out states, sd err/weight "
+            f"{err:.3e}")
+    require(int(maps["fused"].state.tile_overflow) > 0,
+            "the fused stream did not fall back")
+
+    # the seg map's drain: overflow counters, submaps, DAG counters; then a
+    # stream drained after every insert must give the same DAG
+    deferred = maps["seg"]
+    sample_blocks = int(deferred.state.n_blocks)
+    stats = deferred.stats()
+    require(stats["n_submaps"] == rotations and not deferred._pending,
+            f"stats(): {stats['n_submaps']} submaps")
+    require(not any(stats["overflow"].values()),
+            f"seg stream overflow {stats['overflow']}")
+    drained = TSDFMap(config=scfg, device="cuda")
+    for pts, pos in scans:
+        drained.insert(pts, pos)
+        drained._drain_pending()
+    require(drained.stats() == stats, "drain after every insert: stats differ")
+    for f in ("dir_keys", "pool_sd", "pool_w"):
+        require(torch.equal(getattr(drained.state, f),
+                            getattr(deferred.state, f)),
+                f"drain after every insert: {f} differs")
+    log(f"phase 8 determinism: two seg streams bit-equal (pools and "
+        f"directories, active and rotated-out); deferred rotation equals a "
+        f"drain after every insert; stats(): n_submaps "
+        f"{stats['n_submaps']}, leaf clusters {stats['leaf_clusters']}, "
+        f"active blocks {sample_blocks}, overflow {stats['overflow']}")
+    del maps, drained, deferred
+    torch.cuda.empty_cache()
+
+    # one scan: seg against the scatter backend, packed against f32 ingest
+    pts, pos = scans[0]
+    one = {}
+    for name, kw in (("seg", dict(accumulate_impl="seg")),
+                     ("xla", dict(accumulate_impl="xla")),
+                     ("f32", dict(accumulate_impl="seg",
+                                  packed_ingest=False))):
+        one[name] = TSDFMap(config=ks.stream_config(**kw), device="cuda")
+        met = one[name].insert(pts, pos)
+    err = same_map(one["seg"], one["xla"], "one scan, seg vs scatter")
+    abs_err = float((one["seg"].state.pool_sd -
+                     one["xla"].state.pool_sd).abs().max())
+    require(abs_err <= 1e-5, f"seg vs scatter pool_sd differs by {abs_err}")
+    c1, s1 = one["f32"].voxel_samples()
+    c2, s2 = one["seg"].voxel_samples()
+    common, i1, i2 = np.intersect1d(c1, c2, return_indices=True)
+    share = common.shape[0] / max(c1.shape[0], c2.shape[0])
+    diff = np.abs(s1[i1] - s2[i2])
+    require(share >= 0.95 and float(np.median(diff)) < 0.004 and
+            float(np.mean(diff)) < 0.01,
+            f"packed vs f32 ingest: share {share}, median {np.median(diff)}, "
+            f"mean {np.mean(diff)}")
+    log(f"phase 8 one scan ({sizes[0]} points): n_valid_samples "
+        f"{met['n_valid_samples']}, touched blocks "
+        f"{met['n_touched_blocks']}, unique voxels "
+        f"{int((one['seg'].state.pool_w > 0).sum())}; seg vs scatter "
+        f"backend weights equal, sd err/weight {err:.3e}, max abs "
+        f"{abs_err:.3e}; packed vs f32 ingest share {share:.4f} of "
+        f"{c1.shape[0]} / {c2.shape[0]} voxels, sd diff median "
+        f"{np.median(diff):.2e} mean {np.mean(diff):.2e}")
+    return stream_launches, rk2
 
 
 def main() -> int:
@@ -676,7 +856,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 4: sparse insert -> fallback through K4 and K5 ----
-    sparse_cfg = MapConfig(max_points=2048)
+    # fused by name: under auto this cloud would be dispatched to seg
+    sparse_cfg = MapConfig(max_points=2048, accumulate_impl="fused")
     sparse = sphere(2048, 5.0, 7)
     ms_ = TSDFMap(0.05, 0.1, config=sparse_cfg, device="cuda")
     scatter = accumulate.accumulate_xla
@@ -744,6 +925,10 @@ def main() -> int:
     # ---- phase 7: microbenchmarks at full size ----
     micro_launches = run_micro(micro_errs, results)
 
+    # ---- phase 8: the sparse streaming path ----
+    stream_launches, rk2 = run_stream(cfg)
+    results["estimate_normals"]["kitti_scan"] = rk2
+
     # ---- result ----
     launches = dict(dense_launches,
                     tile_partials=sparse_launches["tile_partials"],
@@ -762,7 +947,8 @@ def main() -> int:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
-                    "library_ms": r.get("library_ms")})
+                    "library_ms": r.get("library_ms"),
+                    "launches_stream": stream_launches[name]})
     log(f"phase 2 details: {json.dumps(results)}")
     print(json.dumps({"kernels": out}))
     print(smi)

@@ -104,9 +104,9 @@ def test_golden_sphere_workload(impl):
 
 
 def test_rotation_and_finalize_match_jax(tmp_path):
-    """Two scans 6 m apart rotate the active map into a submap (finalized
-    synchronously in the port); the union of both maps matches the JAX
-    package's."""
+    """Two scans 6 m apart rotate the active map into a submap (a pending
+    stub until ``voxel_samples`` drains it); the union of both maps matches
+    the JAX package's."""
     cfg = _small_cfg("xla")
     scans = [(_sphere(4096, 1.0, 5), np.zeros(3, np.float32)),
              (_sphere(4096, 1.0, 6, centre=(6.0, 0.0, 0.0)),
@@ -130,28 +130,45 @@ def test_rotation_and_finalize_match_jax(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw in ({"accumulate_impl": "seg"}, {"carve_steps": 4},
-               {"packed_ingest": True}, {"mesh_impl": "device"}):
+    for kw in ({"accumulate_impl": "sample_tile"}, {"carve_steps": 4},
+               {"sparse_impl": "sample_tile"}, {"save_grid": True},
+               {"mesh_impl": "device"}):
         with pytest.raises(NotImplementedError):
             TSDFMap(config=MapConfig(**kw), device="cpu")
+    # ported since: the sparse backend and packed ingest
+    for kw in ({"accumulate_impl": "seg"}, {"packed_ingest": True},
+               {"accumulate_impl": "seg", "packed_ingest": True}):
+        m = TSDFMap(config=MapConfig(max_points=1024, block_capacity=1024,
+                                     touched_capacity=1024, **kw),
+                    device="cpu")
+        m.insert(_sphere(1024, 1.0, 1), np.zeros(3, np.float32))
+        assert int(m.state.n_blocks) > 0
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing the port, then a CPU insert + save (which builds the DAG,
-    through the native runtime where g++ builds it), loads neither jax nor
-    any module of the JAX package."""
+    """Importing the port — the KITTI module and the stream script too —
+    then a rotating two-scan packed ``seg`` stream, ``stats()`` and a save
+    on the CPU (which builds the DAG, through the native runtime where g++
+    builds it), loads neither jax nor any module of the JAX package."""
     code = f"""
 import sys
 import numpy as np
 import chad_tsdf_tpu_torch, chad_tsdf_tpu_torch.core.map
 import chad_tsdf_tpu_torch.kernels
+import chad_tsdf_tpu_torch.io.kitti
+import chad_tsdf_tpu_torch.scripts.kitti_stream
+import chad_tsdf_tpu_torch.profile_insert
 from chad_tsdf_tpu_torch import TSDFMap, MapConfig
 rng = np.random.default_rng(0)
 d = rng.normal(size=(4096, 3))
 pts = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
 m = TSDFMap(config=MapConfig(max_points=4096, block_capacity=4096,
-                             touched_capacity=4096), device="cpu")
+                             touched_capacity=4096, accumulate_impl="seg",
+                             packed_ingest=True), device="cpu")
 m.insert(pts, np.zeros(3, np.float32))
+shift = np.float32([6.0, 0.0, 0.0])
+m.insert(pts + shift, shift)
+assert m.stats()["n_submaps"] == 1
 m.save({str(tmp_path / "m.ply")!r})
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "chad_tsdf_tpu" or k.startswith("chad_tsdf_tpu."))
