@@ -8,11 +8,17 @@ include/chad/tsdf.hpp:21-171, src/chad/tsdf.cpp:26-86):
   pipeline of core/integrate.py on the map's device.  A rotation only
   stashes the rotated-out state (core/submap.py ``start_finalize``); its
   read-back and DAG build wait for the next drain (``save``, ``stats``,
-  ``finalize_active``, or ``max_pending_finalize`` stubs);
+  ``finalize_active``, or when ``max_pending_finalize`` stubs or
+  ``_MAX_PENDING_BYTES`` of their pools pile up);
 * ``save(filename)``: snapshot the active submap into the DAG, mesh the
-  union of all submaps with host marching cubes and write a PLY
-  (tsdf.cpp:76-86).  As in the JAX package, save() is idempotent and
-  meshes every submap unless ``mesh_first_submap_only``.
+  union of all submaps with marching cubes on the map's device
+  (``mesh/device_mc.py``; ``mesh_impl="auto"`` meshes on the host for a
+  CPU map) and write a PLY (tsdf.cpp:76-86), and the ``.grid`` dump with
+  ``save_grid``.  As in the JAX package, save() is idempotent and meshes
+  every submap unless ``mesh_first_submap_only``;
+* the read side: ``extract_mesh`` (optionally contour-optimized),
+  ``voxel_samples`` (re-anchoring corrected submaps), ``leaf_arrays`` /
+  ``leaf_items``, ``raycast`` and ``merge``.
 
 The map runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``; without a card the default raises rather
@@ -21,9 +27,8 @@ than falling back to the CPU.  ``accumulate_impl`` may be ``auto``,
 under ``auto`` on CUDA each scan goes to the dense ``fused`` backend or,
 below ``sparse_points_per_block``, to ``sparse_impl``.
 ``packed_ingest`` sends int16 points to the device.  Not ported yet
-(ROADMAP.md): the ``sample_tile`` backend, carving, device marching cubes,
-the ``.grid`` dump, raycast/merge/leaf_arrays and loop closure; the options
-that select them raise NotImplementedError.
+(ROADMAP.md): the ``sample_tile`` backend, carving and loop closure; the
+options that select them raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,10 +42,17 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
-from ..mesh import marching_cubes, write_ply
-from ..ops import codec
+from ..mesh import device_mc, grid as grid_io, optimize, write_ply
+from ..mesh.mc import TriangleMesh, _vertex_normals, triangulate
+from ..ops import codec, morton
 from . import dag, integrate, submap as submap_mod
 from .state import create_state, origin_blocks_for_position, resolve_device
+
+# the device bytes the deferred rotations' stubs may pin (each keeps a whole
+# pool alive): the oldest is materialized while they exceed it.  Four pools
+# at the default block_capacity, so there ``max_pending_finalize`` decides;
+# a larger block_capacity lets fewer wait
+_MAX_PENDING_BYTES = 1 << 30
 
 
 class LazyMetrics(collections.abc.MutableMapping):
@@ -94,10 +106,6 @@ def _check_ported(config: MapConfig) -> None:
     missing = []
     if config.carve_steps > 0:
         missing.append("carve_steps")
-    if config.save_grid:
-        missing.append("save_grid")
-    if config.mesh_impl == "device":
-        missing.append("mesh_impl='device'")
     for name in ("accumulate_impl", "sparse_impl"):
         if getattr(config, name) == "sample_tile":
             missing.append(f"{name}='sample_tile'")
@@ -236,11 +244,14 @@ class TSDFMap:
     def __del__(self):
         # a short-lived map (< 64 inserts, never rotated or saved) would
         # otherwise drop data without warning; read the counters only when
-        # inserts happened since the last check
+        # inserts happened since the last check.  A rotated-out map still
+        # pending was never drained, so its counters were never read.
         try:
             n = getattr(self, "_n_inserts", 0)
             if n and n != getattr(self, "_checked_at_insert", -1):
                 self._warn_overflow()
+            for p in getattr(self, "_pending", ()):
+                p.warn_undrained()
         except Exception:     # interpreter shutdown: modules may be gone
             pass
 
@@ -285,9 +296,11 @@ class TSDFMap:
         self._pending.append(submap_mod.start_finalize(
             self.state, self.config, self._positions,
             anchor=self._anchor_from(self._positions)))
-        # bound the device memory the stubs hold (a whole pool each); the
-        # oldest has waited longest
-        while len(self._pending) > self.config.max_pending_finalize:
+        # bound the device memory the stubs hold (a whole pool each), by
+        # count and by bytes; the oldest has waited longest
+        while (len(self._pending) > self.config.max_pending_finalize or
+               sum(p.pinned_bytes for p in self._pending) >
+               _MAX_PENDING_BYTES):
             self.submaps.append(
                 self._pending.pop(0).finish(self.levels, self.config))
 
@@ -335,26 +348,47 @@ class TSDFMap:
     def _sm_levels(self, sm: submap_mod.Submap) -> dag.NodeLevels:
         return sm.levels if sm.levels is not None else self.levels
 
+    def _reanchor_codes(self, codes: np.ndarray,
+                        transform: np.ndarray) -> np.ndarray:
+        """Map world voxel codes through a rigid correction: decode to voxel
+        centers, transform, re-discretize (floor(p/res), morton.hpp:71)."""
+        coords = morton.np_decode63(codes)
+        res = self.config.sdf_res
+        centers = (coords.astype(np.float64) + 0.5) * res
+        t = np.asarray(transform, np.float64)
+        moved = centers @ t[:3, :3].T + t[:3, 3]
+        vox = np.floor(moved / res).astype(np.int32)
+        return morton.np_encode63(vox)
+
+    def _leaf_voxels(self, sm: submap_mod.Submap):
+        """(voxel codes uint64, signed distances f32, weights uint8) of a
+        submap's present voxels, in its own frame."""
+        levels = self._sm_levels(sm)
+        ccodes, words_t = levels.walk_leaf_clusters(sm.root_addr_tsdf)
+        _, words_w = levels.walk_leaf_clusters(sm.root_addr_weight)
+        lt = codec.unpack_cluster_u64(words_t)               # (M, 8)
+        lw = codec.unpack_cluster_u64(words_w)
+        present = lt != codec.EMPTY
+        vox_codes = (ccodes[:, None] << np.uint64(3)) | \
+            np.arange(8, dtype=np.uint64)[None, :]
+        sd = codec.np_decode_sd(lt, self.config.sdf_trunc)
+        return vox_codes[present], sd[present], lw[present]
+
     def voxel_samples(self, submaps=None):
         """All (voxel Morton code uint64, signed distance f32) samples of
         the selected submaps.  Voxels seen by several submaps are fused by
-        a weighted mean over the stored quantized weights."""
+        a weighted mean over the stored quantized weights.  Submaps with a
+        ``corrected`` pose are re-anchored first."""
         if submaps is None:
             submaps = self._all_submaps()
         all_codes, all_sd, all_w = [], [], []
         for sm in submaps:
-            levels = self._sm_levels(sm)
-            ccodes, words_t = levels.walk_leaf_clusters(sm.root_addr_tsdf)
-            _, words_w = levels.walk_leaf_clusters(sm.root_addr_weight)
-            lt = codec.unpack_cluster_u64(words_t)           # (M, 8)
-            lw = codec.unpack_cluster_u64(words_w)
-            present = lt != codec.EMPTY
-            vox_codes = (ccodes[:, None] << np.uint64(3)) | \
-                np.arange(8, dtype=np.uint64)[None, :]
-            sd = codec.np_decode_sd(lt, self.config.sdf_trunc)
-            all_codes.append(vox_codes[present])
-            all_sd.append(sd[present].astype(np.float32))
-            all_w.append(np.maximum(lw[present].astype(np.float32), 1.0))
+            codes_i, sd_i, w_i = self._leaf_voxels(sm)
+            if sm.corrected is not None:
+                codes_i = self._reanchor_codes(codes_i, sm.corrected)
+            all_codes.append(codes_i)
+            all_sd.append(sd_i.astype(np.float32))
+            all_w.append(np.maximum(w_i.astype(np.float32), 1.0))
         if not all_codes:
             return np.zeros(0, np.uint64), np.zeros(0, np.float32)
         codes = np.concatenate(all_codes)
@@ -368,22 +402,70 @@ class TSDFMap:
         sdw = np.add.reduceat(sd * w, starts)
         return codes[starts], (sdw / wsum).astype(np.float32)
 
-    def extract_mesh(self):
-        """Marching-cubes mesh of the map (host numpy, as the JAX package
-        runs it off the TPU)."""
+    def _mesh_impl(self) -> str:
+        """``mesh_impl`` resolved: ``auto`` meshes on the card for a CUDA
+        map (where the JAX package meshes on the TPU) and on the host for
+        a CPU map; ``device`` on a CPU map runs the same torch ops there."""
+        impl = self.config.mesh_impl
+        if impl == "auto":
+            impl = "device" if self.device.type == "cuda" else "host"
+        return impl
+
+    def _mesh_timed(self, optimize_iterations: int = 0,
+                    optimize_method: str = "planar"):
+        """:meth:`extract_mesh`, the milliseconds of its stages
+        (``voxel_samples_ms``, ``mc_ms``: marching cubes through the weld
+        and the read-back, ``normals_ms``) and the meshed samples."""
         submaps = self._all_submaps()
         if self.config.mesh_first_submap_only and submaps:
             submaps = submaps[:1]   # reference parity (tsdf.cpp:85)
+        t0 = time.perf_counter()
         codes, sd = self.voxel_samples(submaps)
-        return marching_cubes(codes, sd, self.config.sdf_res)
+        t1 = time.perf_counter()
+        if self._mesh_impl() == "device":
+            v, f = device_mc.triangulate_device(codes, sd, self.config.sdf_res,
+                                                device=self.device)
+        else:
+            v, f = triangulate(codes, sd, self.config.sdf_res)
+        t2 = time.perf_counter()
+        mesh = TriangleMesh(v, f, _vertex_normals(v, f))
+        t3 = time.perf_counter()
+        if optimize_iterations > 0:
+            if optimize_method == "planar":
+                mesh = optimize.optimize_planar_faces(mesh,
+                                                      optimize_iterations)
+            elif optimize_method == "taubin":
+                mesh = optimize.taubin_smooth(mesh, optimize_iterations)
+            else:
+                raise ValueError(f"bad optimize_method {optimize_method!r}")
+        split = {"voxel_samples_ms": (t1 - t0) * 1e3,
+                 "mc_ms": (t2 - t1) * 1e3, "normals_ms": (t3 - t2) * 1e3}
+        return mesh, split, (codes, sd)
+
+    def extract_mesh(self, optimize_iterations: int = 0,
+                     optimize_method: str = "planar"):
+        """Marching-cubes mesh of the map (``mesh_impl``, see
+        :meth:`_mesh_impl`).
+
+        ``optimize_iterations > 0`` runs contour optimization analogous to
+        the reference's LVR2 ``optimizePlanarFaces(mesh, 5)``
+        (lvr2.cpp:262-266): method ``"planar"`` (default) clusters planar
+        regions and projects contour vertices onto plane intersections;
+        ``"taubin"`` is the generic shrink-free smoother.
+        """
+        return self._mesh_timed(optimize_iterations, optimize_method)[0]
 
     def save(self, filename: str) -> None:
-        """Reconstruct the mesh and write it to ``filename`` (tsdf.cpp:76-86).
-        ``last_metrics`` gets ``sub_fin_ms`` and ``mesh_ms``."""
+        """Reconstruct the mesh and write it to ``filename`` (tsdf.cpp:76-86),
+        and the ``.grid`` dump to ``hashgrid.grid`` in the working directory
+        when ``config.save_grid`` is set (lvr2.cpp:290 writes it on every
+        save).  ``last_metrics`` gets ``sub_fin_ms``, ``mesh_ms`` and its
+        split (``voxel_samples_ms``, ``mc_ms``, ``normals_ms``), ``grid_ms``
+        with the dump, and ``ply_ms``."""
         t0 = time.perf_counter()
         self._all_submaps()                # finalizes the active snapshot
         t_fin = time.perf_counter() - t0
-        mesh = self.extract_mesh()
+        mesh, split, samples = self._mesh_timed()
         t_mesh = time.perf_counter() - t0 - t_fin
         if self.config.profile:
             print(f"sub fin  {t_fin * 1e3:8.2f} ms")
@@ -391,7 +473,122 @@ class TSDFMap:
                   f"({mesh.n_vertices} verts, {mesh.n_faces} faces)")
         self.last_metrics["sub_fin_ms"] = t_fin * 1e3
         self.last_metrics["mesh_ms"] = t_mesh * 1e3
+        self.last_metrics.update(split)
+        if self.config.save_grid:
+            t0 = time.perf_counter()
+            if self.config.mesh_first_submap_only:   # the dump has them all
+                samples = self.voxel_samples()
+            grid_io.write_grid("hashgrid.grid", *samples, self.config.sdf_res)
+            self.last_metrics["grid_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
         write_ply(filename, mesh)
+        self.last_metrics["ply_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def save_grid(self, filename: str) -> None:
+        """The reference's binary ``.grid`` dump of every submap's samples
+        (``mesh/grid.py``)."""
+        codes, sd = self.voxel_samples()
+        grid_io.write_grid(filename, codes, sd, self.config.sdf_res)
+
+    # ------------------------------------------------------------------
+    def leaf_arrays(self, submap: submap_mod.Submap | None = None):
+        """Vectorized leaf export: (world voxel coords (N, 3) int32,
+        signed distances (N,) f32, weights (N,) uint8) over the selected
+        submaps — the bulk form of :meth:`leaf_items`."""
+        submaps = [submap] if submap is not None else self._all_submaps()
+        coords_l, sd_l, w_l = [], [], []
+        for sm in submaps:
+            codes, sd, w = self._leaf_voxels(sm)
+            coords_l.append(morton.np_decode63(codes))
+            sd_l.append(sd)
+            w_l.append(w)
+        if not coords_l:
+            return (np.zeros((0, 3), np.int32), np.zeros(0, np.float32),
+                    np.zeros(0, np.uint8))
+        return (np.concatenate(coords_l), np.concatenate(sd_l),
+                np.concatenate(w_l))
+
+    def leaf_items(self, submap: submap_mod.Submap | None = None):
+        """Iterate (world voxel coord (3,) int32, signed distance, weight)
+        — the leaf-iterator API the reference sketches but never builds
+        (tsdf.hpp:120-155).  For bulk access use :meth:`leaf_arrays`."""
+        coords, sds, ws = self.leaf_arrays(submap)
+        for i in range(coords.shape[0]):
+            yield coords[i], float(sds[i]), int(ws[i])
+
+    def _sorted_samples(self):
+        """Code-sorted (codes, sd) for point queries, cached until the map
+        changes: the key moves with every insert (a rotation happens in
+        one), drain, ``finalize_active`` and ``merge``."""
+        cache = getattr(self, "_query_cache", None)
+        key = (getattr(self, "_n_inserts", 0), len(self.submaps),
+               len(self._pending))
+        if cache is not None and cache[0] == key:
+            return cache[1], cache[2]
+        codes, sd = self.voxel_samples()        # already code-sorted/unique
+        self._query_cache = (key, codes, sd)
+        return codes, sd
+
+    def raycast(self, origin, direction, max_dist: float = 100.0):
+        """March a ray through the map; returns the first zero-crossing hit
+        position or None — the reference's declared-but-unbuilt raycast
+        (tsdf.hpp:158-161).  The sorted query index is cached, so repeated
+        raycasts on an unchanged map cost one searchsorted each.
+
+        Every grid-plane crossing along the ray is enumerated (the
+        vectorized form of the Amanatides-Woo walk the integrator uses,
+        ops/dda.py; octree.hpp:92-152), so no voxel the ray passes through
+        is skipped, even at glancing incidence."""
+        codes, sd = self._sorted_samples()
+        if codes.shape[0] == 0:
+            return None
+        origin = np.asarray(origin, np.float64)
+        direction = np.asarray(direction, np.float64)
+        direction = direction / np.linalg.norm(direction)
+        res = float(self.config.sdf_res)
+
+        # all grid-plane crossing parameters t in (0, max_dist), per axis
+        ts = [np.asarray([0.0, max_dist])]
+        for k in range(3):
+            dk = direction[k]
+            if dk == 0.0:
+                continue
+            lo = origin[k] + min(0.0, dk * max_dist)
+            hi = origin[k] + max(0.0, dk * max_dist)
+            planes = np.arange(np.ceil(lo / res), np.floor(hi / res) + 1)
+            tk = (planes * res - origin[k]) / dk
+            ts.append(tk[(tk > 0.0) & (tk < max_dist)])
+        t_all = np.sort(np.concatenate(ts))
+        # midpoints of consecutive crossings are strictly inside one voxel
+        mid = (t_all[:-1] + t_all[1:]) * 0.5
+        pts = origin[None, :] + mid[:, None] * direction[None, :]
+        vox = np.floor(pts / res).astype(np.int32)
+        qc = morton.np_encode63(vox)
+        pos = np.minimum(np.searchsorted(codes, qc), codes.shape[0] - 1)
+        hitm = codes[pos] == qc
+        vals = np.where(hitm, sd[pos], np.nan)
+        sign = vals < 0
+        crossings = np.nonzero(hitm[:-1] & hitm[1:] & ~sign[:-1] & sign[1:])[0]
+        if crossings.size == 0:
+            return None
+        i = crossings[0]
+        a, b = vals[i], vals[i + 1]
+        frac = a / (a - b) if a != b else 0.5
+        return origin + (mid[i] + frac * (mid[i + 1] - mid[i])) * direction
+
+    def merge(self, other: "TSDFMap") -> None:
+        """Merge another map's finalized submaps into this one — the
+        reference's declared-but-unbuilt map merging (tsdf.hpp:161).
+        DAG contents are re-consed into this map's levels."""
+        for sm in other._all_submaps():
+            levels = other._sm_levels(sm)
+            codes, words_t = levels.walk_leaf_clusters(sm.root_addr_tsdf)
+            _, words_w = levels.walk_leaf_clusters(sm.root_addr_weight)
+            new_sm = submap_mod.build_submap(self.levels, codes, words_t,
+                                             words_w, sm.positions)
+            new_sm.anchor = sm.anchor
+            new_sm.corrected = sm.corrected
+            self.submaps.append(new_sm)
 
     def stats(self) -> dict:
         """DAG compression counters, finalized submaps and, for the active

@@ -41,7 +41,9 @@ class Submap:
     ``levels``: the NodeLevels the roots index into when they are not the
     owning map's (a throwaway snapshot of the active map); None = the
     map's.  ``anchor``: (4, 4) world pose of the submap frame (first
-    scanner position).
+    scanner position).  ``corrected``: a (4, 4) rigid correction that
+    loop closure sets; the map applies it to the submap's voxels at
+    mesh / query time (``TSDFMap._reanchor_codes``).  None = uncorrected.
     """
     root_addr_tsdf: int
     root_addr_weight: int
@@ -50,6 +52,7 @@ class Submap:
     n_voxels: int = 0
     levels: object = None
     anchor: object = None
+    corrected: object = None
 
 
 def _live_slots(state: ActiveMapState, n_pad: int):
@@ -214,6 +217,18 @@ _LOSSY = ("point_overflow", "sample_overflow", "block_overflow",
           "touched_overflow")
 
 
+def _warn_lossy(counts) -> None:
+    """The drain's overflow warning for a rotated-out map's four lossy
+    counters (host ints, in ``_LOSSY`` order)."""
+    ovf = {k: int(v) for k, v in zip(_LOSSY, counts) if int(v) > 0}
+    if ovf:
+        warnings.warn(
+            f"map capacity overflow — dropped data: {ovf}; raise the "
+            "corresponding MapConfig capacities (block_capacity/"
+            "touched_capacity/max_points) or shrink the scan extent",
+            RuntimeWarning, stacklevel=5)
+
+
 def _rotation_counters(state: ActiveMapState, cb: int):
     """Everything the host needs of a rotated-out map, in ONE tensor (one
     transfer): i32[9] = [n_blocks, live clusters, point / sample / block /
@@ -236,7 +251,8 @@ class PendingSubmap:
     stream at the next drain (``save`` / ``stats`` / ``finalize_active``,
     or when ``MapConfig.max_pending_finalize`` stubs pile up).  Until then
     the stub keeps the whole pool (2 x block_capacity x 512 f32) alive in
-    device memory, which ``max_pending_finalize`` bounds.
+    device memory, which ``max_pending_finalize`` and the map's byte
+    bound (``core/map.py`` ``_MAX_PENDING_BYTES``) limit.
 
     The compacted buffer crosses to the host on a side stream that first
     waits for the stream it was built on, into pinned memory, and
@@ -264,13 +280,7 @@ class PendingSubmap:
         state, config = self.raw_state, self.config
         vals = _rotation_counters(state, config.block_capacity).cpu().numpy()
         n_blocks, count = int(vals[0]), int(vals[1])
-        ovf = {k: int(v) for k, v in zip(_LOSSY, vals[2:6]) if int(v) > 0}
-        if ovf:
-            warnings.warn(
-                f"map capacity overflow — dropped data: {ovf}; raise the "
-                "corresponding MapConfig capacities (block_capacity/"
-                "touched_capacity/max_points) or shrink the scan extent",
-                RuntimeWarning, stacklevel=4)
+        _warn_lossy(vals[2:6])
         self.origin_blocks = vals[6:9].astype(np.int32)
         if n_blocks == 0 or count == 0:
             self.buf, self.count = None, 0
@@ -281,6 +291,23 @@ class PendingSubmap:
             self.buf = _extract_clusters_compact(state, self.n_pad,
                                                  self.cap, config.sdf_trunc)
         self.raw_state = None          # release the pool
+
+    @property
+    def pinned_bytes(self) -> int:
+        """Device bytes of the pool this stub keeps alive (0 once
+        materialized)."""
+        if self.raw_state is None:
+            return 0
+        return (self.raw_state.pool_sd.nbytes +
+                self.raw_state.pool_w.nbytes)
+
+    def warn_undrained(self) -> None:
+        """The drain's overflow warning, for a stub that will never be
+        drained (its map is going away): reads the four lossy counters of
+        the stashed state, nothing else."""
+        if self.raw_state is not None:
+            _warn_lossy(torch.stack([getattr(self.raw_state, k)
+                                     for k in _LOSSY]).tolist())
 
     def start_copies(self) -> None:
         self._materialize_device()

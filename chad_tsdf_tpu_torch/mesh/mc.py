@@ -54,7 +54,16 @@ class TriangleMesh:
 
 def marching_cubes(sample_codes: np.ndarray, sample_sd: np.ndarray,
                    sdf_res: float, iso: float = 0.0) -> TriangleMesh:
-    """Extract the isosurface from sparse voxel samples.
+    """Extract the isosurface from sparse voxel samples: :func:`triangulate`
+    and the vertex normals."""
+    v, f = triangulate(sample_codes, sample_sd, sdf_res, iso)
+    return TriangleMesh(v, f, _vertex_normals(v, f))
+
+
+def triangulate(sample_codes: np.ndarray, sample_sd: np.ndarray,
+                sdf_res: float, iso: float = 0.0):
+    """The isosurface of sparse voxel samples as (vertices (V, 3) float32,
+    faces (F, 3) int32), without the normals.
 
     Args:
       sample_codes: (N,) uint64 63-bit voxel Morton codes, unique.
@@ -93,8 +102,7 @@ def marching_cubes(sample_codes: np.ndarray, sample_sd: np.ndarray,
                                     case[active])
     c = cell_coords.shape[0]
     if c == 0:
-        z3 = np.zeros((0, 3), np.float32)
-        return TriangleMesh(z3, np.zeros((0, 3), np.int32), z3.copy())
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
 
     # ---- triangles: per-cell tri-table gather + compaction ----
     tris_e = TRI_TABLE[case][:, :15]                     # (C, 15); col 16 pad
@@ -137,10 +145,7 @@ def marching_cubes(sample_codes: np.ndarray, sample_sd: np.ndarray,
     # drop degenerate triangles (two corners welded to the same vertex)
     ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) &
           (faces[:, 0] != faces[:, 2]))
-    faces = faces[ok]
-
-    vn = _vertex_normals(vertices, faces)
-    return TriangleMesh(vertices, faces, vn)
+    return vertices, faces[ok]
 
 
 def _vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:

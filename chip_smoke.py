@@ -28,9 +28,10 @@ runs, failing with a non-zero exit on the first error:
    True)``), a yardstick the port never calls;
 3. the main path: ``TSDFMap(0.05, 0.1, device="cuda")`` at the default
    MapConfig inserts the 2^20-point r = 5 m sphere (seed 420, bench.py's
-   cloud) and saves a PLY, whose vertices must sit on the sphere; then the
-   ``pallas`` and ``tile`` backends insert the same cloud and must give the
-   fused map's blocks, weights and signed distances;
+   cloud) and saves a PLY through device marching cubes (``mesh_impl``
+   ``auto`` on CUDA; its calls are counted), whose vertices must sit on the
+   sphere; then the ``pallas`` and ``tile`` backends insert the same cloud
+   and must give the fused map's blocks, weights and signed distances;
 4. a sparse 2048-point insert whose tiles overflow, so the fallback (K4,
    then K5) runs; its pool is held against the scatter backend, and the
    scatter form is not reached on the fallback;
@@ -53,7 +54,16 @@ runs, failing with a non-zero exit on the first error:
    three final maps equal to each other, rotated-out submaps included;
    ``seg`` against the scatter backend and packed against f32 ingest on one
    scan; two ``seg`` streams bit-equal in pools and DAG counters, and a
-   stream drained after every insert equal to the deferred one.
+   stream drained after every insert equal to the deferred one;
+9. ``save`` on the card: the phase-3 sphere map and a ``seg`` stream map
+   of phase 8 (2 pending rotations, drained by the save) each saved under
+   ``auto``, which must run device marching cubes once, and then with
+   ``mesh_impl="host"``: both ``save`` times, ``last_metrics``' split
+   (``sub_fin_ms``, ``voxel_samples_ms``, ``mc_ms``, ``normals_ms``,
+   ``ply_ms``) and the peak device memory; the device mesh of each map's
+   voxel samples against the host mesh of the same samples (vertex sets
+   within 1e-6 m, face sets and counts equal); and the sphere's ``.grid``
+   dump, whose header counts must equal ``mesh/grid.py`` ``build_cells``'.
 
 Launch counts are reset just before the dense inserts of phase 3 and read
 right after them: K1, K2 and K3 must have launched there and K4 not.  They
@@ -595,7 +605,8 @@ def bit_equal_maps(a, b, what):
 
 def run_stream(cfg):
     """Phase 8: the KITTI-shaped stream and its checks; returns the launch
-    counts of the ``seg`` stream and K2's result on one scan."""
+    counts of the ``seg`` stream, K2's result on one scan, and one ``seg``
+    stream map whose rotations are still pending (for phase 9)."""
     from chad_tsdf_tpu_torch import MapConfig, TSDFMap, kernels
     from chad_tsdf_tpu_torch.ops import accumulate
     from chad_tsdf_tpu_torch.profile_insert import sorted_cloud
@@ -626,7 +637,7 @@ def run_stream(cfg):
 
     # the three sparse backends in turns; the first round warms each
     rates = {"seg": [], "pallas": [], "fused": []}
-    maps, stream_launches = {}, None
+    maps, stream_launches, undrained = {}, None, None
     for rnd in range(4):
         for impl in rates:
             c = ks.stream_config(sparse_impl=impl)
@@ -659,6 +670,8 @@ def run_stream(cfg):
                 rates[impl].append((len(scans) - 1) / dt)
             if impl in maps and impl == "seg":
                 bit_equal_maps(m, maps[impl], "two seg streams")
+                if undrained is None:
+                    undrained = maps[impl]
             maps[impl] = m
             if rnd == 3:
                 log(f"phase 8 {impl}: {statistics.median(rates[impl]):.2f} "
@@ -732,7 +745,94 @@ def run_stream(cfg):
         f"{abs_err:.3e}; packed vs f32 ingest share {share:.4f} of "
         f"{c1.shape[0]} / {c2.shape[0]} voxels, sd diff median "
         f"{np.median(diff):.2e} mean {np.mean(diff):.2e}")
-    return stream_launches, rk2
+    return stream_launches, rk2, undrained
+
+
+def timed_save(m, impl, path):
+    """``m.save(path)`` with ``mesh_impl=impl``: (ms, ``last_metrics``'
+    split, peak device bytes, device bytes before the save).  Under
+    ``auto`` and ``device`` it must run device marching cubes once."""
+    from chad_tsdf_tpu_torch.mesh import device_mc
+    m.config = dataclasses.replace(m.config, mesh_impl=impl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    calls = device_mc.CALLS["marching_cubes_device"]
+    t0 = time.perf_counter()
+    m.save(path)
+    ms = (time.perf_counter() - t0) * 1e3
+    ran = device_mc.CALLS["marching_cubes_device"] - calls
+    require(ran == (impl != "host"),
+            f"save under mesh_impl={impl} ran device MC {ran} times")
+    split = {k: m.last_metrics[k] for k in (
+        "sub_fin_ms", "voxel_samples_ms", "mc_ms", "normals_ms", "ply_ms")}
+    return ms, split, torch.cuda.max_memory_allocated(), base
+
+
+def device_vs_host_mesh(m, what):
+    """Device marching cubes against the host's on ``m``'s voxel samples
+    (vertex sets within 1e-6 m, equal face sets and counts); returns the
+    comparison, both meshes' sizes and both MC times (ms)."""
+    from chad_tsdf_tpu_torch.mesh import device_mc, mc
+    from chad_tsdf_tpu_torch.scripts.mesh_scale import mesh_difference
+    codes, sd = m.voxel_samples()
+    t0 = time.perf_counter()
+    dev = device_mc.marching_cubes_device(codes, sd, m.sdf_res)
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = mc.marching_cubes(codes, sd, m.sdf_res)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    diff = mesh_difference(dev, host)
+    require(diff["same_face_set"] and diff["same_face_count"] and
+            diff["max_vertex_diff_m"] is not None and
+            diff["max_vertex_diff_m"] <= 1e-6,
+            f"{what}: device and host meshes differ: {diff}")
+    return dict(diff, voxels=int(codes.shape[0]), vertices=dev.n_vertices,
+                faces=dev.n_faces, device_mc_ms=dev_ms, host_mc_ms=host_ms)
+
+
+def run_save(sphere_map, stream_map, tmp):
+    """Phase 9: ``save`` on the card, device against host."""
+    from chad_tsdf_tpu_torch.mesh import grid
+    out = {}
+    for name, m in (("sphere", sphere_map), ("stream", stream_map)):
+        if name == "stream":
+            require(len(m._pending) == 2,
+                    f"the stream map has {len(m._pending)} pending stubs")
+        r = {}
+        for impl in ("auto", "host"):
+            ms, split, peak, base = timed_save(
+                m, impl, os.path.join(tmp, f"{name}_{impl}.ply"))
+            r[impl] = {"save_ms": ms, "split_ms": split,
+                       "peak_device_bytes": peak, "device_bytes_before": base}
+        require(not m._pending and m.n_submaps == len(m.submaps),
+                f"{name}: save left pending stubs")
+        r["meshes"] = device_vs_host_mesh(m, name)
+        log(f"phase 9 save ({name}): device {r['auto']['save_ms']:.1f} ms "
+            f"(split {json.dumps(r['auto']['split_ms'])}, peak device "
+            f"memory {r['auto']['peak_device_bytes']} B of which "
+            f"{r['auto']['device_bytes_before']} B held before), host "
+            f"{r['host']['save_ms']:.1f} ms (split "
+            f"{json.dumps(r['host']['split_ms'])}); device vs host MC on "
+            f"the same samples: {json.dumps(r['meshes'])}")
+        out[name] = r
+    path = os.path.join(tmp, "sphere.grid")
+    sphere_map.save_grid(path)
+    codes, sd = sphere_map.voxel_samples()
+    _, cells, n_complete = grid.build_cells(codes, sd)
+    with open(path, "rb") as fh:
+        res = float(np.frombuffer(fh.read(4), np.float32)[0])
+        n_pts, n_cells = (int(x) for x in np.frombuffer(fh.read(16),
+                                                        np.uint64))
+    require((res, n_pts, n_cells) == (np.float32(sphere_map.sdf_res),
+                                       codes.shape[0], int(n_complete)) and
+            n_cells == cells.shape[0],
+            f".grid header {res, n_pts, n_cells}, build_cells "
+            f"{codes.shape[0], int(n_complete)}")
+    log(f"phase 9 .grid dump of the sphere: {n_pts} points, {n_cells} "
+        f"complete cells, {os.path.getsize(path)} bytes; equal to "
+        f"build_cells")
+    return out
 
 
 def main() -> int:
@@ -747,7 +847,7 @@ def main() -> int:
     log(smi)
     sys.path.insert(0, ROOT)
     from chad_tsdf_tpu_torch import MapConfig, TSDFMap, kernels
-    from chad_tsdf_tpu_torch.mesh import read_ply
+    from chad_tsdf_tpu_torch.mesh import device_mc, read_ply
     require(not jax_package_modules(),
             f"the port imported {jax_package_modules()}")
 
@@ -794,10 +894,13 @@ def main() -> int:
             "the dense sphere fell back through K4")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "mesh.ply")
+        device_mc.CALLS["marching_cubes_device"] = 0
         t0 = time.perf_counter()
         m.save(path)
         save_ms = (time.perf_counter() - t0) * 1e3
         mesh = read_ply(path)
+    require(device_mc.CALLS["marching_cubes_device"] == 1,
+            "the sphere's save did not run device marching cubes")
     n_blocks = int(m.state.n_blocks)
     tile_ovf = int(m.state.tile_overflow)
     require(tile_ovf == 0, f"dense sphere tile_overflow {tile_ovf}")
@@ -817,9 +920,13 @@ def main() -> int:
         f"points/s; n_blocks {n_blocks}, tile_overflow {tile_ovf}, "
         f"host reads/insert {met['host_reads']}, n_valid_samples "
         f"{met['n_valid_samples']}; launches {dense_launches}")
-    log(f"phase 3 save: {save_ms:.1f} ms (sub fin "
+    log(f"phase 3 save (device marching cubes): {save_ms:.1f} ms (sub fin "
         f"{m.last_metrics['sub_fin_ms']:.1f} ms, mesh "
-        f"{m.last_metrics['mesh_ms']:.1f} ms); {mesh.n_vertices} vertices, "
+        f"{m.last_metrics['mesh_ms']:.1f} ms: voxel samples "
+        f"{m.last_metrics['voxel_samples_ms']:.1f}, MC "
+        f"{m.last_metrics['mc_ms']:.1f}, normals "
+        f"{m.last_metrics['normals_ms']:.1f}; PLY "
+        f"{m.last_metrics['ply_ms']:.1f} ms); {mesh.n_vertices} vertices, "
         f"{mesh.n_faces} faces, RMSE to the r=5 sphere {rmse:.6f} m")
 
     # the pallas and tile backends: same cloud, same number of inserts
@@ -852,8 +959,6 @@ def main() -> int:
             f"{int(mb.state.tile_overflow)}; launches {impl_launches}")
         del mb
         torch.cuda.empty_cache()
-    del m
-    torch.cuda.empty_cache()
 
     # ---- phase 4: sparse insert -> fallback through K4 and K5 ----
     # fused by name: under auto this cloud would be dispatched to seg
@@ -926,8 +1031,14 @@ def main() -> int:
     micro_launches = run_micro(micro_errs, results)
 
     # ---- phase 8: the sparse streaming path ----
-    stream_launches, rk2 = run_stream(cfg)
+    stream_launches, rk2, stream_map = run_stream(cfg)
     results["estimate_normals"]["kitti_scan"] = rk2
+
+    # ---- phase 9: save on the card, device against host ----
+    with tempfile.TemporaryDirectory() as tmp:
+        run_save(m, stream_map, tmp)
+    del m, stream_map
+    torch.cuda.empty_cache()
 
     # ---- result ----
     launches = dict(dense_launches,

@@ -129,55 +129,77 @@ def test_rotation_and_finalize_match_jax(tmp_path):
     assert read_ply(str(tmp_path / "two.ply")).n_vertices > 0
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path, monkeypatch):
     for kw in ({"accumulate_impl": "sample_tile"}, {"carve_steps": 4},
-               {"sparse_impl": "sample_tile"}, {"save_grid": True},
-               {"mesh_impl": "device"}):
+               {"sparse_impl": "sample_tile"}):
         with pytest.raises(NotImplementedError):
             TSDFMap(config=MapConfig(**kw), device="cpu")
-    # ported since: the sparse backend and packed ingest
+    # ported since: the sparse backend, packed ingest, the .grid dump and
+    # device marching cubes
+    monkeypatch.chdir(tmp_path)
     for kw in ({"accumulate_impl": "seg"}, {"packed_ingest": True},
-               {"accumulate_impl": "seg", "packed_ingest": True}):
+               {"accumulate_impl": "seg", "packed_ingest": True},
+               {"save_grid": True}, {"mesh_impl": "device"}):
         m = TSDFMap(config=MapConfig(max_points=1024, block_capacity=1024,
                                      touched_capacity=1024, **kw),
                     device="cpu")
         m.insert(_sphere(1024, 1.0, 1), np.zeros(3, np.float32))
         assert int(m.state.n_blocks) > 0
+        if "save_grid" in kw or "mesh_impl" in kw:
+            m.save(str(tmp_path / "m.ply"))
+            assert read_ply(str(tmp_path / "m.ply")).n_faces > 0
+            assert os.path.exists("hashgrid.grid") == ("save_grid" in kw)
+            if "save_grid" in kw:
+                os.remove("hashgrid.grid")
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing the port — the KITTI module and the stream script too —
-    then a rotating two-scan packed ``seg`` stream, ``stats()`` and a save
-    on the CPU (which builds the DAG, through the native runtime where g++
-    builds it), loads neither jax nor any module of the JAX package."""
-    code = f"""
-import sys
+    """Importing the port — the KITTI module, the stream and mesh-scale
+    scripts and the mesh modules too — then a rotating two-scan packed
+    ``seg`` stream, ``stats()``, a save through device marching cubes with
+    the ``.grid`` dump, ``leaf_arrays``, ``raycast`` and ``merge`` on the
+    CPU (the DAG built through the native runtime where g++ builds it),
+    loads neither jax nor any module of the JAX package.  It runs in a
+    temporary directory: ``save`` writes ``hashgrid.grid`` there."""
+    code = """
+import os, sys
 import numpy as np
 import chad_tsdf_tpu_torch, chad_tsdf_tpu_torch.core.map
 import chad_tsdf_tpu_torch.kernels
 import chad_tsdf_tpu_torch.io.kitti
 import chad_tsdf_tpu_torch.scripts.kitti_stream
+import chad_tsdf_tpu_torch.scripts.mesh_scale
 import chad_tsdf_tpu_torch.profile_insert
+import chad_tsdf_tpu_torch.mesh.device_mc, chad_tsdf_tpu_torch.mesh.grid
+import chad_tsdf_tpu_torch.mesh.optimize, chad_tsdf_tpu_torch.mesh.rmse
 from chad_tsdf_tpu_torch import TSDFMap, MapConfig
 rng = np.random.default_rng(0)
 d = rng.normal(size=(4096, 3))
 pts = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-m = TSDFMap(config=MapConfig(max_points=4096, block_capacity=4096,
-                             touched_capacity=4096, accumulate_impl="seg",
-                             packed_ingest=True), device="cpu")
+cfg = MapConfig(max_points=4096, block_capacity=4096, touched_capacity=4096,
+                accumulate_impl="seg", packed_ingest=True,
+                mesh_impl="device", save_grid=True)
+m = TSDFMap(config=cfg, device="cpu")
 m.insert(pts, np.zeros(3, np.float32))
 shift = np.float32([6.0, 0.0, 0.0])
 m.insert(pts + shift, shift)
 assert m.stats()["n_submaps"] == 1
-m.save({str(tmp_path / "m.ply")!r})
+m.save("m.ply")
+assert os.path.getsize("hashgrid.grid") > 20
+assert m.raycast(np.zeros(3), pts[0]) is not None
+other = TSDFMap(config=cfg, device="cpu")
+other.insert(pts * 2, np.zeros(3, np.float32))
+m.merge(other)
+assert m.leaf_arrays()[0].shape[0] > 0
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "chad_tsdf_tpu" or k.startswith("chad_tsdf_tpu."))
 assert not bad, bad
 print("n_vertices", m.extract_mesh().n_vertices)
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          cwd=str(tmp_path), capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) > 0
 

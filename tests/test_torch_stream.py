@@ -23,6 +23,7 @@ from chad_tsdf_tpu.core import submap as j_submap
 from chad_tsdf_tpu.io import kitti as j_kitti
 from chad_tsdf_tpu_torch import MapConfig, TSDFMap
 from chad_tsdf_tpu_torch.core import integrate as t_integrate
+from chad_tsdf_tpu_torch.core import map as t_map
 from chad_tsdf_tpu_torch.core import state as t_state
 from chad_tsdf_tpu_torch.core import submap as t_submap
 from chad_tsdf_tpu_torch.io import kitti as t_kitti
@@ -257,11 +258,21 @@ def test_deferred_rotation_equals_draining_every_insert():
     _levels_equal(deferred, drained)
 
 
-def test_max_pending_finalize_bounds_the_stubs():
-    """More rotations than ``max_pending_finalize``: the oldest stub is
-    materialized at the rotation, and a stub holds the rotated-out state
-    until then."""
-    cfg = _cfg(accumulate_impl="seg", max_pending_finalize=1, **SMALL)
+@pytest.mark.parametrize("bound", ["count", "bytes"])
+def test_max_pending_finalize_bounds_the_stubs(bound, monkeypatch):
+    """More rotations than ``max_pending_finalize`` (or than fit in the
+    map's byte bound on pinned pools): the oldest stub is materialized at
+    the rotation, and a stub holds the rotated-out state until then.  At
+    the default config the count decides: the byte bound is four default
+    pools."""
+    pool = 2 * SMALL["block_capacity"] * 512 * 4
+    default = MapConfig()
+    assert t_map._MAX_PENDING_BYTES == \
+        default.max_pending_finalize * 2 * default.block_capacity * 512 * 4
+    if bound == "bytes":
+        monkeypatch.setattr(t_map, "_MAX_PENDING_BYTES", pool + pool // 2)
+    cfg = _cfg(accumulate_impl="seg", max_pending_finalize=(
+        1 if bound == "count" else 4), **SMALL)
     m = TSDFMap(config=cfg, device="cpu")
     for pts, pos in _stream(5, spacing=6.0, n=1024):   # every scan rotates
         m.insert(pts, pos)
@@ -270,12 +281,41 @@ def test_max_pending_finalize_bounds_the_stubs():
     stub = m._pending[0]
     assert isinstance(stub, t_submap.PendingSubmap)
     assert stub.raw_state is not None and stub.buf is None
+    assert stub.pinned_bytes == pool
+    if bound == "bytes":
+        return
     with pytest.warns(RuntimeWarning, match="touched_overflow"):
         tiny = TSDFMap(config=_cfg(accumulate_impl="seg", **{
             **SMALL, "touched_capacity": 64}), device="cpu")
         for pts, pos in _stream(2, spacing=6.0, n=1024):
             tiny.insert(pts, pos)                  # no warning yet
         tiny.stats()                               # the drain warns
+
+
+def test_undrained_rotation_warns_at_del():
+    """A rotated-out map whose ``block_capacity`` overflowed warns when the
+    map goes away without a drain (the drain would have warned); the
+    active map after it overflows nothing, and the inserts read nothing."""
+    import gc
+    import warnings
+
+    cfg = _cfg(accumulate_impl="seg", **{**SMALL, "block_capacity": 64})
+    scans = _stream(2, spacing=6.0, n=1024)
+    m = TSDFMap(config=cfg, device="cpu")
+    m.insert(*scans[0])
+    m.insert(scans[1][0][:16], scans[1][1])        # rotates; a few points
+    assert len(m._pending) == 1
+    assert int(m._pending[0].raw_state.block_overflow) > 0
+    assert not any(int(getattr(m.state, k)) for k in
+                   ("point_overflow", "sample_overflow", "block_overflow",
+                    "touched_overflow"))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        del m
+        gc.collect()
+    msgs = [str(r.message) for r in rec
+            if issubclass(r.category, RuntimeWarning)]
+    assert any("block_overflow" in s for s in msgs), msgs
 
 
 def test_empty_map_stats_and_rotation():
