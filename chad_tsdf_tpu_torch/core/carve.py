@@ -1,0 +1,189 @@
+"""Space carving — PyTorch port of ``chad_tsdf_tpu/core/carve.py``.
+
+Free-space evidence integrated along the observation rays (the reference's
+unbuilt last roadmap item, reference README.md:60): a voxel between the
+scanner and the truncation band of a return is an observation of
+``sd = +trunc``, the value the reference integrator clamps to
+(octree.hpp:156-159) but never visits.  As in the JAX package carving is
+
+* strided: ``carve_stride`` voxels between the free-space samples of a ray
+  and ``carve_subsample`` rows of the cloud between carved rays;
+* erosion-only: a sample updates a voxel of an already allocated block and
+  is dropped (counted) elsewhere, so the pool's pressure is the same with
+  carving on or off;
+* stopped ``sdf_trunc`` short of the return, so a ray never dilutes its own
+  band;
+* on the active map only: rotated-out submaps are immutable DAGs.
+
+The JAX package leaves carving to XLA; here it is plain torch ops on the
+map's device, in the shape of the ``seg`` insert (core/integrate.py):
+
+1. per carve ray, ``carve_steps`` strided sample positions from the scanner
+   outward (valid while ``t < range - trunc``), voxelized with the insert
+   path's ``floor(p * f32(1 / res))``, every f32 step a separate operation;
+2. one sort of the int64 key ``bkey << 32 | okey`` (the JAX package's
+   two-key sort, INT32_MAX last); the payload is the constant ``+trunc``,
+   so a voxel's evidence is its run length, an integer;
+3. a fixed-capacity compaction (cumulative rank, no host read) to one entry
+   per voxel, a ``searchsorted`` of each entry's block in the sorted
+   directory (a lookup, never an allocation), and one ``index_add_`` per
+   pool plane of ``(count * trunc * w_c, count * w_c)``.
+
+Every entry's index is unique, so each pool element gets at most one addend
+and the result does not depend on the order of the adds.  The counters are
+integers (the JAX package sums them in f32, inexact beyond 2^24 samples),
+and the work runs at the full capacity ``carve_steps * ceil(N /
+carve_subsample)``: the JAX package's entry-capacity buckets choose on the
+device with ``lax.switch``, which torch could only do after a host read,
+and the buckets do not change the result.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import MapConfig
+from ..ops import dda, morton, segops
+from . import integrate
+from .state import INT32_MAX, ActiveMapState
+
+
+def carve_sample_keys(px, py, pz, n_points: int, position, origin_blocks,
+                      config: MapConfig):
+    """Voxel keys of the free-space samples of one (padded) cloud.
+
+    Returns flat ``(bkey, okey)`` i32[carve_steps * ceil(N / sub)], sample
+    ``i`` of ray ``j`` at ``i * ceil(N / sub) + j``, with INT32_MAX marking
+    invalid slots (padding, samples beyond ``range - trunc``, samples
+    outside the local extent).
+    """
+    sub = config.carve_subsample
+    k = config.carve_steps
+    dev = px.device
+    pxs, pys, pzs = px[::sub], py[::sub], pz[::sub]
+    ns = pxs.shape[0]
+    valid_pt = torch.arange(ns, dtype=torch.int32, device=dev) * sub \
+        < n_points
+
+    dx = pxs - position[0]
+    dy = pys - position[1]
+    dz = pzs - position[2]
+    r = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    safe = torch.clamp(r, min=1e-12)
+    ux, uy, uz = dx / safe, dy / safe, dz / safe
+
+    step_m = float(np.float32(config.carve_stride * config.sdf_res))
+    # sample centres at (i + 0.5) strides: never on the scanner voxel's
+    # corner, and the first sample clears the scanner's own voxel
+    t = (torch.arange(k, dtype=torch.float32, device=dev)[:, None] + 0.5) \
+        * step_m                                                  # (K, 1)
+    limit = (r - float(np.float32(config.sdf_trunc)))[None, :]   # (1, Ns)
+    valid_s = (t < limit) & valid_pt[None, :]                     # (K, Ns)
+
+    qx = position[0] + ux[None, :] * t
+    qy = position[1] + uy[None, :] * t
+    qz = position[2] + uz[None, :] * t
+
+    # the insert path's voxelization (morton.hpp:71, point_keys_soa)
+    extent = config.blocks_per_axis * 8
+    origin_voxel = origin_blocks * 8
+    inv = dda.res_recip_f32(config.sdf_res)
+    lx = torch.floor(qx * inv).to(torch.int32) - origin_voxel[0]
+    ly = torch.floor(qy * inv).to(torch.int32) - origin_voxel[1]
+    lz = torch.floor(qz * inv).to(torch.int32) - origin_voxel[2]
+    in_range = ((lx >= 0) & (lx < extent) & (ly >= 0) & (ly < extent) &
+                (lz >= 0) & (lz < extent))
+    valid = valid_s & in_range
+    lx = torch.clamp(lx, 0, extent - 1)
+    ly = torch.clamp(ly, 0, extent - 1)
+    lz = torch.clamp(lz, 0, extent - 1)
+    bkey = morton.encode_block(lx >> 3, ly >> 3, lz >> 3)
+    okey = morton.encode_offset(lx & 7, ly & 7, lz & 7)
+    bkey = torch.where(valid, bkey, INT32_MAX)
+    okey = torch.where(valid, okey, INT32_MAX)
+    return bkey.reshape(-1), okey.reshape(-1)
+
+
+def carve_step_impl(state: ActiveMapState, points, n_points: int, position,
+                    config: MapConfig):
+    """Accumulate one cloud's free-space evidence into the pool, in place.
+
+    ``points`` is the (padded) f32[N, 3] cloud the insert took; every
+    ``carve_subsample``-th row spawns a carve ray.  Returns ``(new_state,
+    metrics)`` with int32 ``n_carve_samples`` (samples that hit allocated
+    blocks), ``n_carved_voxels`` (distinct voxels updated) and
+    ``n_carve_dropped`` (samples in unallocated space or beyond
+    ``touched_capacity`` blocks: dropped by design, not data loss).
+    """
+    cb = config.block_capacity
+    reserved_row = cb - 1
+    dev = points.device
+    bkey, okey = carve_sample_keys(points[:, 0], points[:, 1], points[:, 2],
+                                   n_points, position, state.origin_blocks,
+                                   config)
+    s = bkey.shape[0]
+    key = torch.sort((bkey.to(torch.int64) << 32) |
+                     okey.to(torch.int64)).values
+    sb = (key >> 32).to(torch.int32)
+    so = (key & 0x1FF).to(torch.int32)
+    valid = sb != INT32_MAX
+    n_valid = valid.sum(dtype=torch.int32)
+
+    # valid samples are a prefix: a voxel's count is the distance from the
+    # previous voxel's last sample to its own
+    is_end = torch.ones(s, dtype=torch.bool, device=dev)
+    is_end[:-1] = key[1:] != key[:-1]
+    end_pos, _, e_total = segops.compact_flag_positions(is_end & valid, s)
+    ev = torch.arange(s, dtype=torch.int32, device=dev) < e_total
+    at = torch.clamp(end_pos, max=s - 1)
+    prev_pos = torch.full_like(end_pos, -1)
+    prev_pos[1:] = end_pos[:-1]
+    e_b = torch.where(ev, sb[at], INT32_MAX)
+    e_o = torch.where(ev, so[at], 0)
+    e_c = torch.where(ev, end_pos - prev_pos, 0)
+
+    # LOOKUP ONLY (erosion-only rule): blocks absent from the directory
+    # get the reserved row and their entries are dropped
+    t_cap = min(config.touched_capacity, s)
+    flags, _, _, _, tvalid, tb_keys = integrate._touched_blocks(e_b, t_cap)
+    pos = torch.searchsorted(state.dir_keys, tb_keys).to(torch.int32)
+    pos_c = torch.clamp(pos, max=cb - 1)
+    found = (state.dir_keys[pos_c] == tb_keys) & tvalid
+    tb_slots = torch.where(found, state.dir_slots[pos_c], reserved_row)
+    e_slot, kept = integrate._slot_per_entry(flags, tb_slots, t_cap,
+                                             reserved_row)
+    ok = (e_b != INT32_MAX) & kept
+
+    # dead entries add zero into the reserved row, spread over its lanes
+    lane = torch.arange(s, dtype=torch.int64, device=dev) & 511
+    idx = torch.where(ok, e_slot.to(torch.int64) * 512 + e_o,
+                      reserved_row * 512 + lane)
+    count = torch.where(ok, e_c, 0)
+    cf = count.to(torch.float32)
+    sd_per = float(np.float32(config.sdf_trunc * config.carve_weight))
+    w_per = float(np.float32(config.carve_weight))
+    state.pool_sd.view(-1).index_add_(0, idx, cf * sd_per)
+    state.pool_w.view(-1).index_add_(0, idx, cf * w_per)
+
+    n_hit = count.sum(dtype=torch.int32)
+    metrics = {"n_carve_samples": n_hit,
+               "n_carved_voxels": ok.sum(dtype=torch.int32),
+               "n_carve_dropped": n_valid - n_hit}
+    return state, metrics
+
+
+def carve_step(state: ActiveMapState, points, n_points: int, position,
+               config: MapConfig):
+    """:func:`carve_step_impl` (the pool is updated in place, as the JAX
+    package's jitted step donates it)."""
+    return carve_step_impl(state, points, n_points, position, config)
+
+
+def carve_step_packed(state: ActiveMapState, qpoints, n_points: int,
+                      position, config: MapConfig):
+    """Packed-ingest carve: the same i16 fixed-point cloud as
+    ``integrate.insert_step_packed``, decoded the same way."""
+    return carve_step_impl(state,
+                           integrate.unpack_points(qpoints, position, config),
+                           n_points, position, config)

@@ -41,11 +41,15 @@ TPU — and through the scatter form otherwise.
 Counters and overflow semantics are those of the JAX package.  Where the
 JAX package branches on a device value (``lax.cond`` / ``lax.switch``), the
 port either computes both ways unconditionally (the directory rebuild is
-one sort of <= block_capacity + touched_capacity keys) or sizes the work
-statically and masks (K3's and K5's grids).  The single host read per
-insert of the fused and tile paths is their total of uncovered samples,
-which decides whether the fallback runs; it is counted in the metrics as
-``host_reads`` (0 under ``pallas``, ``xla`` and ``seg``).
+one sort of <= block_capacity + touched_capacity keys), sizes the work
+statically and masks (K3's and K5's grids), or, for the fused and tile
+paths' fallback, defers the branch: :func:`insert_step_deferred` returns
+the insert's :class:`FallbackTail`, which copies the count of uncovered
+samples into pinned host memory behind an event and runs the fallback
+only when the caller settles it (``TSDFMap`` does at its next insert or
+read).  No backend reads the device on the host during an insert:
+``host_reads`` is 0 under every backend.  :func:`insert_step` settles at
+once.
 
 The state passed in is consumed: its pool planes are updated in place
 (the JAX package donates them), and the returned state shares them.
@@ -53,6 +57,7 @@ The state passed in is consumed: its pool planes are updated in place
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -413,13 +418,16 @@ def update_pool_tiled(state: ActiveMapState, pkeys, psd, pw, tile_ovf,
     return new_state, metrics
 
 
-def insert_step(state: ActiveMapState, points, n_points: int, position,
-                config: MapConfig):
-    """Integrate one padded point cloud into the active map.
+def insert_step_deferred(state: ActiveMapState, points, n_points: int,
+                         position, config: MapConfig):
+    """Integrate one padded point cloud into the active map, leaving the
+    fused and tile paths' fallback to the caller.
 
     points: f32[N, 3] world points on the state's device, padded;
     n_points: number of valid rows; position: f32[3] scanner position.
-    Returns (new_state, metrics dict of device scalars).
+    Returns (new_state, metrics dict of device scalars, tail): ``tail`` is
+    None, or the :class:`FallbackTail` that must be settled
+    (:func:`settle`) before anything else reads or updates the state.
     """
     _stage("host prep + upload")
     impl = _accumulate_impl(config, state.device)
@@ -433,14 +441,27 @@ def insert_step(state: ActiveMapState, points, n_points: int, position,
                                 state.origin_blocks, config)
         state, metrics = update_pool(state, sort_samples(batch), config)
         metrics["host_reads"] = 0
-        return state, metrics
+        return state, metrics, None
     if impl == "seg":
-        return insert_step_sparse_seg(state, points, n_points, position,
-                                      config)
+        state, metrics = insert_step_sparse_seg(state, points, n_points,
+                                                position, config)
+        return state, metrics, None
     raise NotImplementedError(
         f"accumulate_impl={impl!r} is not ported to PyTorch yet "
         "(see ROADMAP.md); use 'auto', 'fused', 'tile', 'pallas', 'xla' or "
         "'seg'")
+
+
+def insert_step(state: ActiveMapState, points, n_points: int, position,
+                config: MapConfig):
+    """:func:`insert_step_deferred`, settled at once: the fused and tile
+    paths wait here for their count of uncovered samples.  Returns
+    (new_state, metrics dict of device scalars)."""
+    state, metrics, tail = insert_step_deferred(state, points, n_points,
+                                                position, config)
+    if tail is not None:
+        state = settle(tail, state, metrics)
+    return state, metrics
 
 
 def pack_points(points: np.ndarray, position: np.ndarray,
@@ -464,9 +485,14 @@ def insert_step_packed(state: ActiveMapState, qpoints, n_points: int,
     i16[N, 3] from :func:`pack_points`, half the bytes of the f32 cloud on
     the way to the device; world points = q * step + position, computed
     here on the device (a multiply and an add, each rounded to f32)."""
+    return insert_step(state, unpack_points(qpoints, position, config),
+                       n_points, position, config)
+
+
+def unpack_points(qpoints, position, config: MapConfig):
+    """World points of a :func:`pack_points` cloud, on its device."""
     step = config.sdf_res / 8.0
-    pts = qpoints.to(torch.float32) * step + position[None, :]
-    return insert_step(state, pts, n_points, position, config)
+    return qpoints.to(torch.float32) * step + position[None, :]
 
 
 def sparse_seg_entry_stream(points, n_points: int, position, origin_blocks,
@@ -629,24 +655,78 @@ def _fallback(state: ActiveMapState, s_bkey, s_okey, sd, ovfmask,
     return state, m["n_new_blocks"]
 
 
+class FallbackTail:
+    """The undecided end of a fused or tile insert (the JAX package's
+    ``lax.cond`` on ``tile_ovf``, integrate.py:652-675).
+
+    Whether any sample fell outside its tile's block list is known only on
+    the device.  Instead of reading that count on the host, the insert
+    copies it into pinned host memory (``non_blocking``) and records an
+    event behind the copy; the tail keeps what the fallback needs alive
+    (``make_grids``, a closure over the sorted points and normals, or over
+    the tile path's grids).  :func:`settle` waits for the event, normally
+    long done by then, and runs the fallback only when the count is
+    non-zero.  The pool updates keep the JAX order as long as the tail is
+    settled before anything else touches the state.
+    """
+
+    def __init__(self, tile_ovf, make_grids, config: MapConfig):
+        self.make_grids = make_grids
+        self.config = config
+        if tile_ovf.device.type == "cuda":
+            self.flag = torch.empty((), dtype=torch.int32, pin_memory=True)
+            self.flag.copy_(tile_ovf, non_blocking=True)
+            self.copied = torch.cuda.Event()
+            self.copied.record(torch.cuda.current_stream(tile_ovf.device))
+        else:
+            self.flag, self.copied = tile_ovf, None
+
+    def needed(self) -> bool:
+        """Whether the fallback must run: waits for the copy's event, then
+        reads the host word (no tensor method, so the host-read counters
+        of ``scripts/kitti_stream.py`` see no read of the device)."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        return ctypes.c_int32.from_address(self.flag.data_ptr()).value > 0
+
+
+def settle(tail: FallbackTail, state: ActiveMapState, metrics) -> \
+        ActiveMapState:
+    """Run ``tail``'s fallback on ``state`` if it is needed and add what it
+    allocated into ``metrics``' ``n_new_blocks`` and ``n_blocks`` (as
+    differences, so metrics summed over several clouds stay sums)."""
+    if not tail.needed():
+        return state
+    n_blocks0 = state.n_blocks
+    s_bkey, s_okey, sd, ovfmask = tail.make_grids()
+    state, extra_new = _fallback(state, s_bkey, s_okey, sd, ovfmask,
+                                 tail.config)
+    metrics["n_new_blocks"] = metrics["n_new_blocks"] + extra_new
+    metrics["n_blocks"] = metrics["n_blocks"] + (state.n_blocks - n_blocks0)
+    return state
+
+
 def insert_step_fused(state: ActiveMapState, points, n_points: int,
                       position, config: MapConfig):
     """Fused insert: Morton point sort -> normals -> K1 (DDA + signed
     distance + per-tile partial rows) -> K3 merge.
 
-    The (K, N) sample grids never exist in device memory.  When K1 could
-    not fit some samples into their tile's block list (one host read of
-    their count), the grids are recomputed, K4 marks exactly the samples
-    K1 left out, and those go through the sort-based :func:`update_pool`.
+    The (K, N) sample grids never exist in device memory unless the
+    returned :class:`FallbackTail` finds, when settled, that K1 could not
+    fit some samples into their tile's block list: then the grids are
+    recomputed, K4 marks exactly the samples K1 left out, and those go
+    through the sort-based :func:`update_pool`.  Returns (state, metrics,
+    tail).
     """
     px, py, pz = points[:, 0], points[:, 1], points[:, 2]
+    origin_blocks = state.origin_blocks
     bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
-                                             state.origin_blocks, config)
+                                             origin_blocks, config)
     sb, so, px, py, pz = sort_points_soa(px, py, pz, bkey, okey)
     nx, ny, nz = estimate_normals_dispatch(px, py, pz, sb, so, position,
-                                           state.origin_blocks, config)
+                                           origin_blocks, config)
     pkeys, psd, pw, counts = fused_integrate.fused_tile_partials(
-        px, py, pz, nx, ny, nz, sb, position, state.origin_blocks * 8,
+        px, py, pz, nx, ny, nz, sb, position, origin_blocks * 8,
         nb=config.tile_nb, k=config.dda_steps, res=config.sdf_res,
         trunc=config.sdf_trunc, extent=config.blocks_per_axis * 8)
     totals = counts.sum(dim=0, dtype=torch.int32)
@@ -654,30 +734,27 @@ def insert_step_fused(state: ActiveMapState, points, n_points: int,
     state, metrics = update_pool_tiled(state, pkeys, psd, pw, tile_ovf,
                                        n_valid, samp_overflow, pt_overflow,
                                        config)
-    del pkeys, psd, pw
 
-    extra_new = 0
-    if int(tile_ovf) > 0:                      # the one host read
+    def make_grids():
         s_bkey, s_okey, sd, _, _ = sample_grids(
-            px, py, pz, nx, ny, nz, sb, position, state.origin_blocks,
-            config)
+            px, py, pz, nx, ny, nz, sb, position, origin_blocks, config)
         ovfmask = tile_accum.tile_partials(s_bkey, s_okey, sd,
                                            config.tile_nb,
                                            config.sdf_trunc)[3] != 0
-        state, extra_new = _fallback(state, s_bkey, s_okey, sd, ovfmask,
-                                     config)
-    metrics["n_new_blocks"] = metrics["n_new_blocks"] + extra_new
-    metrics["n_blocks"] = state.n_blocks
-    metrics["host_reads"] = 1
-    return state, metrics
+        return s_bkey, s_okey, sd, ovfmask
+
+    metrics["host_reads"] = 0
+    return state, metrics, FallbackTail(tile_ovf, make_grids, config)
 
 
 def insert_step_tiled(state: ActiveMapState, points, n_points: int,
                       position, config: MapConfig):
     """Tiled insert: Morton point sort -> normals -> DDA sample grids -> K4
     per-tile partial rows -> K3 merge; no global sample sort.  Samples
-    beyond a tile's block list (one host read of their count) go through
-    the sort-based :func:`update_pool`, as in the fused path."""
+    beyond a tile's block list go through the sort-based
+    :func:`update_pool` when the returned :class:`FallbackTail` is settled,
+    as in the fused path; the tail keeps the grids and K4's mask.  Returns
+    (state, metrics, tail)."""
     px, py, pz = points[:, 0], points[:, 1], points[:, 2]
     bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
                                              state.origin_blocks, config)
@@ -691,16 +768,9 @@ def insert_step_tiled(state: ActiveMapState, points, n_points: int,
     state, metrics = update_pool_tiled(state, pkeys, psd, pw, tile_ovf,
                                        n_valid, samp_overflow, pt_overflow,
                                        config)
-    del pkeys, psd, pw
-
-    extra_new = 0
-    if int(tile_ovf) > 0:                      # the one host read
-        state, extra_new = _fallback(state, s_bkey, s_okey, sd, ovfmask,
-                                     config)
-    metrics["n_new_blocks"] = metrics["n_new_blocks"] + extra_new
-    metrics["n_blocks"] = state.n_blocks
-    metrics["host_reads"] = 1
-    return state, metrics
+    metrics["host_reads"] = 0
+    return state, metrics, FallbackTail(
+        tile_ovf, lambda: (s_bkey, s_okey, sd, ovfmask), config)
 
 
 def _accumulate_impl(config: MapConfig, device: torch.device) -> str:

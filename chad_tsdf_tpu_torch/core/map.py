@@ -18,7 +18,17 @@ include/chad/tsdf.hpp:21-171, src/chad/tsdf.cpp:26-86):
   every submap unless ``mesh_first_submap_only``;
 * the read side: ``extract_mesh`` (optionally contour-optimized),
   ``voxel_samples`` (re-anchoring corrected submaps), ``leaf_arrays`` /
-  ``leaf_items``, ``raycast`` and ``merge``.
+  ``leaf_items``, ``raycast`` and ``merge``;
+* ``optimize_loop_closures``: pose-graph loop closure over the submaps
+  (slam/posegraph.py), applied as per-submap rigid corrections.
+
+Space carving (``carve_steps > 0``, core/carve.py) follows each insert.
+The fused and tile backends end an insert with a deferred branch
+(core/integrate.py ``FallbackTail``): the map settles it before anything
+else reads or updates the active state (the next insert, a rotation,
+``state``, ``stats``, ``save``, ``raycast``, a checkpoint, a loop closure,
+or a read of that insert's metrics), so no insert reads the device on the
+host.
 
 The map runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``; without a card the default raises rather
@@ -27,8 +37,8 @@ than falling back to the CPU.  ``accumulate_impl`` may be ``auto``,
 under ``auto`` on CUDA each scan goes to the dense ``fused`` backend or,
 below ``sparse_points_per_block``, to ``sparse_impl``.
 ``packed_ingest`` sends int16 points to the device.  Not ported yet
-(ROADMAP.md): the ``sample_tile`` backend, carving and loop closure; the
-options that select them raise NotImplementedError.
+(ROADMAP.md): the ``sample_tile`` backend, which raises
+NotImplementedError, and the sharded map.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import collections.abc
 import dataclasses
 import time
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -45,7 +56,7 @@ from ..config import MapConfig
 from ..mesh import device_mc, grid as grid_io, optimize, write_ply
 from ..mesh.mc import TriangleMesh, _vertex_normals, triangulate
 from ..ops import codec, morton
-from . import dag, integrate, submap as submap_mod
+from . import carve, dag, integrate, submap as submap_mod
 from .state import create_state, origin_blocks_for_position, resolve_device
 
 # the device bytes the deferred rotations' stubs may pin (each keeps a whole
@@ -62,14 +73,30 @@ class LazyMetrics(collections.abc.MutableMapping):
     streaming loop that ignores the metrics never waits for the device.
     A ``MutableMapping`` rather than a dict subclass, so ``dict(m)``,
     ``**m`` and ``==`` all go through the converting ``__getitem__``.
-    ``raw(key)`` returns the stored value unconverted.
+    ``raw(key)`` returns the stored value unconverted.  ``settle`` (the
+    map's) runs before any read, so a deferred fallback or carve of the
+    insert is counted.
     """
 
-    def __init__(self, data=None):
+    def __init__(self, data=None, settle=None):
         self._data = dict(data or {})
+        # weak: the map holds its metrics, and a cycle would keep the map's
+        # device pools alive until the garbage collector runs
+        self._settle = None if settle is None else weakref.WeakMethod(settle)
+
+    def _settled(self) -> dict:
+        settle = None if self._settle is None else self._settle()
+        if settle is not None:
+            settle()
+        return self._data
+
+    def add(self, metrics: dict) -> None:
+        """Sum one cloud's device metrics in, without reading them."""
+        for k, v in metrics.items():
+            self._data[k] = self._data[k] + v if k in self._data else v
 
     def __getitem__(self, key):
-        v = self._data[key]
+        v = self._settled()[key]
         if not isinstance(v, (int, float)):
             v = v.item()
             self._data[key] = v
@@ -82,16 +109,16 @@ class LazyMetrics(collections.abc.MutableMapping):
         del self._data[key]
 
     def __iter__(self):
-        return iter(self._data)
+        return iter(list(self._settled()))
 
     def __len__(self):
-        return len(self._data)
+        return len(self._settled())
 
     def raw(self, key):
-        return self._data[key]
+        return self._settled()[key]
 
     def materialize(self) -> "LazyMetrics":
-        for k in self._data:
+        for k in self._settled():
             self[k]
         return self
 
@@ -104,8 +131,6 @@ class LazyMetrics(collections.abc.MutableMapping):
 
 def _check_ported(config: MapConfig) -> None:
     missing = []
-    if config.carve_steps > 0:
-        missing.append("carve_steps")
     for name in ("accumulate_impl", "sparse_impl"):
         if getattr(config, name) == "sample_tile":
             missing.append(f"{name}='sample_tile'")
@@ -128,12 +153,42 @@ class TSDFMap:
         self.levels = dag.NodeLevels()
         self.submaps: list[submap_mod.Submap] = []
         self._pending: list[submap_mod.PendingSubmap] = []
-        self.state = None
+        # the last insert's unsettled end: (FallbackTail, carve arguments
+        # or None, that insert's LazyMetrics)
+        self._deferred = None
+        self._state = None
         self._positions: list[np.ndarray] = []
         self._active_snapshot: submap_mod.Submap | None = None
         self.last_metrics: dict = {}
 
     # ------------------------------------------------------------------
+    @property
+    def state(self):
+        """The active map's state, with the last insert settled."""
+        self._settle()
+        return self._state
+
+    @state.setter
+    def state(self, value) -> None:
+        self._settle()
+        self._state = value
+
+    def _settle(self) -> None:
+        """Finish the last insert: run its fallback if the device counted
+        uncovered samples (core/integrate.py ``settle``: waits for an
+        event, normally long done), then its deferred carve, in the JAX
+        package's order.  A no-op when nothing is pending."""
+        if getattr(self, "_deferred", None) is None:
+            return
+        tail, carve_args, metrics = self._deferred
+        self._deferred = None
+        state = integrate.settle(tail, self._state, metrics._data)
+        if carve_args is not None:
+            state, cmetrics = carve.carve_step(state, *carve_args,
+                                               self.config)
+            metrics.add(cmetrics)
+        self._state = state
+
     @property
     def n_submaps(self) -> int:
         """Finalized submaps, including rotations still materializing."""
@@ -173,7 +228,7 @@ class TSDFMap:
 
         cap = self.config.max_points
         buckets = self.config.buckets
-        metrics_acc: dict = {}
+        metrics_acc = LazyMetrics(settle=self._settle)
         for beg in range(0, max(len(points), 1), cap):
             chunk = points[beg:beg + cap]
             n = chunk.shape[0]
@@ -188,18 +243,27 @@ class TSDFMap:
             if self.config.packed_ingest:
                 # the int16 array is what crosses to the device
                 q = integrate.pack_points(chunk, position, cfg.sdf_res)
-                self.state, metrics = integrate.insert_step_packed(
-                    self.state, torch.from_numpy(q).to(self.device), n, pos_t,
-                    cfg)
+                pts = integrate.unpack_points(
+                    torch.from_numpy(q).to(self.device), pos_t, cfg)
             else:
-                self.state, metrics = integrate.insert_step(
-                    self.state, torch.from_numpy(chunk).to(self.device), n,
-                    pos_t, cfg)
-            for k, v in metrics.items():
-                metrics_acc[k] = (metrics_acc[k] + v) if k in metrics_acc \
-                    else v
-        metrics_acc = LazyMetrics(metrics_acc)
+                pts = torch.from_numpy(chunk).to(self.device)
+            # reading self.state settles the previous cloud's end first
+            self.state, metrics, tail = integrate.insert_step_deferred(
+                self.state, pts, n, pos_t, cfg)
+            metrics_acc.add(metrics)
+            # the carve gets the map's config, not the dispatched one: it
+            # does not depend on the accumulate backend.  It follows the
+            # fallback, so it waits with it when that is undecided.
+            carve_args = (pts, n, pos_t) if self.config.carve_steps > 0 \
+                else None
+            if tail is not None:
+                self._deferred = (tail, carve_args, metrics_acc)
+            elif carve_args is not None:
+                self._state, cmetrics = carve.carve_step(
+                    self._state, *carve_args, self.config)
+                metrics_acc.add(cmetrics)
         if self.config.profile:
+            self._settle()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             metrics_acc["wall_ms"] = (time.perf_counter() - t0) * 1e3
@@ -589,6 +653,51 @@ class TSDFMap:
             new_sm.anchor = sm.anchor
             new_sm.corrected = sm.corrected
             self.submaps.append(new_sm)
+
+    def optimize_loop_closures(self, loop_edges=(), iterations: int = 20,
+                               damping: float = 1e-6, mesh=None,
+                               huber_delta: float = 1.0) -> dict:
+        """Pose-graph loop closure over the submaps — the reference's
+        roadmap item (README.md:59; declared surface tsdf.hpp:158-161).
+
+        Odometry edges come from the submap anchors (the measured relative
+        pose of consecutive submaps); ``loop_edges`` is an iterable of
+        ``(i, j, T_rel (4, 4), weight)`` constraints from, e.g., place
+        recognition and scan matching (outside this library).  The solve
+        runs in ``slam/posegraph.py`` on the map's device; each submap's
+        correction ``T_opt[i] @ inv(anchor[i])`` is then applied to its
+        voxels at mesh and query time.  A non-empty active map takes part
+        as a trailing node through its snapshot.  ``mesh`` (a sharded
+        reduction) is not ported yet.  Returns the optimizer's stats.
+        """
+        from ..slam import posegraph as pg
+        if mesh is not None:
+            raise NotImplementedError(
+                "not ported to PyTorch yet (see ROADMAP.md): "
+                "optimize_loop_closures(mesh=...)")
+        if self._active_nonempty():
+            subs = self._all_submaps()
+        else:
+            self._drain_pending()
+            subs = list(self.submaps)
+        if len(subs) < 2:
+            return {"initial_cost": 0.0, "final_cost": 0.0, "iterations": 0}
+        anchors = np.stack([
+            sm.anchor if sm.anchor is not None else np.eye(4)
+            for sm in subs]).astype(np.float64)
+        graph = pg.make_odometry_edges(anchors.astype(np.float32))
+        for (i, j, z, w) in loop_edges:
+            graph = pg.add_edge(graph, int(i), int(j),
+                                np.asarray(z, np.float32), float(w))
+        poses_opt, stats = pg.optimize_poses(
+            graph, anchors.astype(np.float32), iterations=iterations,
+            damping=damping, huber_delta=huber_delta, device=self.device)
+        for sm, a, p in zip(subs, anchors, poses_opt):
+            corr = p.astype(np.float64) @ np.linalg.inv(a)
+            sm.corrected = None if np.allclose(corr, np.eye(4), atol=1e-7) \
+                else corr
+        self._query_cache = None       # re-anchoring moves voxels
+        return stats
 
     def stats(self) -> dict:
         """DAG compression counters, finalized submaps and, for the active

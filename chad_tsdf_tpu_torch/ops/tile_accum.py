@@ -189,11 +189,12 @@ def merge_partials_plain(pool_sd, pool_w, n_groups, gstart, glen, grow,
     """Plain PyTorch K3 (a row scatter-add): each touched pool row gets the
     sum of its partial rows, taken in sorted order, added once."""
     dev = pool_sd.device
-    ng = int(n_groups[0])
-    lens = glen[:ng].to(torch.int64)
+    # dead groups have glen 0, so all G groups can go through unread
+    ng = gstart.shape[0]
+    lens = glen.to(torch.int64)
     gid = torch.repeat_interleave(torch.arange(ng, device=dev), lens)
     first = torch.repeat_interleave(
-        gstart[:ng].to(torch.int64) - (torch.cumsum(lens, 0) - lens), lens)
+        gstart.to(torch.int64) - (torch.cumsum(lens, 0) - lens), lens)
     idx = torch.arange(gid.shape[0], device=dev) + first
     slot = grow[gid].to(torch.int64) * 8 + prow[idx].to(torch.int64)
     rows = src[idx].to(torch.int64)

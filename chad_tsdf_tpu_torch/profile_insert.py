@@ -12,7 +12,8 @@ cloud, seed 420) at the default ``MapConfig``:
    of its kernels and copies over the span from the first to the last);
 2. per-stage times of one insert, median of 5, with CUDA events (host clock
    on the CPU): keys + sort, normals (K2), K1, directory + plan + K3, and
-   the one host read of ``tile_ovf``;
+   the deferred fallback's flag (``integrate.FallbackTail``: the pinned
+   copy of ``tile_ovf`` and its event; no host read);
 3. K2 against its plain version on a dense-voxel cloud: ``--points``
    points in clusters of ``--segment`` points that each lie in one voxel,
    so one segment spans many of K2's 1024-point tiles at every depth.
@@ -210,7 +211,7 @@ def stage_times(pts: np.ndarray, device: torch.device):
     st = create_state(cfg, origin_blocks_for_position(np.zeros(3), cfg),
                       device)
     names = ["keys + sort", "normals K2", "K1", "directory + plan + K3",
-             "host read"]
+             "fallback flag"]
     runs = []
     for i in range(7):
         sw = Stopwatch(device)
@@ -232,7 +233,7 @@ def stage_times(pts: np.ndarray, device: torch.device):
         st, _ = integrate.update_pool_tiled(st, pk, psd, pw, tot[1], tot[0],
                                             tot[2], 0, cfg)
         sw.mark()
-        int(tot[1])
+        integrate.FallbackTail(tot[1], None, cfg)
         sw.mark()
         if i >= 2:
             runs.append(sw.spans_ms())

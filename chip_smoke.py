@@ -63,7 +63,30 @@ runs, failing with a non-zero exit on the first error:
    ``ply_ms``) and the peak device memory; the device mesh of each map's
    voxel samples against the host mesh of the same samples (vertex sets
    within 1e-6 m, face sets and counts equal); and the sphere's ``.grid``
-   dump, whose header counts must equal ``mesh/grid.py`` ``build_cells``'.
+   dump, whose header counts must equal ``mesh/grid.py`` ``build_cells``';
+10. carving on phase 8's stream (``carve_steps=128, carve_stride=2.0,
+   carve_subsample=2``: 12.8 m of free space per ray, 65,536 rays a
+   scan): every scan dispatched to ``seg`` and then carved with no host
+   read; scans/s with carving off and on in turns; carve ms per insert
+   (CUDA events); one scan's carve on the card against the port's CPU run
+   on the same state and points (differing voxels must be 0, counters
+   equal); and ``examples/demo_carve.py``'s parked-car scene at its sizes,
+   whose car must leave the mesh while the wall stays;
+11. checkpoints: the 12-scan stream map with its 2 pending rotations saved
+   (``io/checkpoint.py``), loaded into a new map on the card, and 2 more
+   scans (one more rotation) inserted into both: pools, directories
+   (active and rotated-out), ``voxel_samples`` and ``stats()`` bit-equal;
+   save ms, load ms, file MB;
+12. loop closure: two passes over the 2^20-point r = 5 m sphere, the second
+   shifted by a 0.35 m odometry drift, each finalized;
+   ``optimize_loop_closures`` with the true loop edge (called twice: the
+   first call pays one-time set-up) must correct submap 1 by -drift
+   (within 0.01 m) with poses equal to the port's CPU solve (within 1e-4),
+   and the saved mesh's RMSE to the sphere must drop.
+
+The fused and tile inserts must report ``host_reads`` 0, and the fused
+inserts run once more under ``torch.cuda.set_sync_debug_mode("warn")``:
+no synchronising call may come from ``core/integrate.py``.
 
 Launch counts are reset just before the dense inserts of phase 3 and read
 right after them: K1, K2 and K3 must have launched there and K4 not.  They
@@ -71,13 +94,18 @@ are reset again just before phase 4's sparse insert, where K4 and K5 must
 launch, just before phase 7's timing runs, where M1-M3 must launch, and
 just before phase 8's stream, where K2 must launch once per insert and K1,
 K3, K4 and K5 not at all.
+Phases 10-12 reset them just before their own inserts and read them right
+after (K2 on the carved stream and the checkpoint's 2 scans, K1-K3 on the
+loop closure's sphere passes).
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
-for K4-K5, phase 7 for M1-M3 (and, as ``launches_stream``, in the 12 inserts
-of phase 8's ``seg`` stream), with its time, its plain version's time, the
-library call's time (or null) and ``bound_ms``: the least time the H100
-could take for the same work on this run's inputs, the larger of the bytes
-the function must move (each input read once, each output written once)
+for K4-K5, phase 7 for M1-M3 (and, as ``launches_stream``,
+``launches_carve``, ``launches_checkpoint`` and ``launches_loop_closure``,
+in the inserts of phases 8, 10, 11 and 12), with its time, its plain
+version's time, the library call's time (or null) and ``bound_ms``: the
+least time the H100 could take for the same work on this run's inputs, the
+larger of the bytes the function must move (each input read once, each
+output written once)
 over 3.35 TB/s and its operations over the peak rate of their type
 (``bound_by`` says which).  The last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX and nothing of
@@ -222,6 +250,28 @@ def check_k2(cfg, name, sb, so, px, py, pz, time_it=False):
     r["bound_ms"], r["bound_by"] = bound(32 * n + 12, K2_OPS_PER_POINT * n)
     log(f"K2 estimate_normals ({name}): {r}; two launches bit-equal")
     return r, nk
+
+
+def integrate_syncs(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: (the
+    synchronising calls made from ``core/integrate.py`` as file:line, all
+    synchronising calls by file:line)."""
+    import collections
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    mine = {k: v for k, v in where.items()
+            if k.startswith(os.path.join("chad_tsdf_tpu_torch", "core",
+                                         "integrate.py"))}
+    return mine, dict(where)
 
 
 def sd_err_per_weight(sd_a, sd_b, w):
@@ -835,6 +885,248 @@ def run_save(sphere_map, stream_map, tmp):
     return out
 
 
+CARVE = dict(carve_steps=128, carve_stride=2.0, carve_subsample=2,
+             carve_weight=1.0)
+
+
+def padded(pts, config):
+    """``pts`` zero-padded to the smallest of ``config``'s buckets."""
+    bucket = next(b for b in config.buckets if b >= len(pts))
+    out = np.zeros((bucket, 3), np.float32)
+    out[:len(pts)] = pts
+    return out
+
+
+def carve_scene():
+    """``examples/demo_carve.py``'s parked car at its sizes: (mesh vertices
+    on the car after scan 1, on the car after 17 scans, on the wall)."""
+    from chad_tsdf_tpu_torch import MapConfig, TSDFMap
+    rng = np.random.default_rng(42)
+
+    def car(n=1500):
+        face = rng.uniform(-0.8, 0.8, (n, 2)).astype(np.float32)
+        return np.column_stack([np.full(n, 2.0, np.float32), face[:, 0],
+                                0.75 * np.abs(face[:, 1])])
+
+    def wall(n=2000):
+        yz = rng.uniform(-2.5, 2.5, (n, 2)).astype(np.float32)
+        return np.column_stack([np.full(n, 5.0, np.float32), yz[:, 0],
+                                yz[:, 1]])
+
+    cfg = MapConfig(max_points=1 << 12, carve_steps=128, carve_stride=1.0,
+                    carve_subsample=1)
+    pos = np.float32([0.0, 0.0, 0.5])
+    m = TSDFMap(config=cfg, device="cuda")
+    m.insert(car(), pos)
+    near = lambda v, x: int(np.sum(np.abs(v[:, 0] - x) < 0.2))
+    n_car0 = near(m.extract_mesh().vertices, 2.0)
+    for _ in range(16):
+        m.insert(wall(), pos)
+    after = m.extract_mesh().vertices
+    return n_car0, near(after, 2.0), near(after, 5.0)
+
+
+def run_carve():
+    """Phase 10: carving on the KITTI-shaped stream, then the parked-car
+    scene; returns the carved stream's launch counts."""
+    from chad_tsdf_tpu_torch import TSDFMap, kernels
+    from chad_tsdf_tpu_torch.core import carve
+    from chad_tsdf_tpu_torch.core.state import (state_from_numpy,
+                                                state_to_numpy)
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+
+    scans = ks.make_scans()
+    plain = ks.stream_config()
+    carving = ks.stream_config(**CARVE)
+    for c in (plain, carving):                      # warm both
+        w = TSDFMap(config=c, device="cuda")
+        for pts, pos in scans:
+            w.insert(pts, pos)
+        w.stats()
+    del w
+    rates = {"off": [], "on": []}
+    launches = None
+    for name in ("off", "on", "on", "off"):
+        c = carving if name == "on" else plain
+        kernels.reset_launches()
+        m, dt, _, metrics, reads = ks.timed_stream(scans, c, "cuda")
+        rates[name].append((len(scans) - 1) / dt)
+        if name == "off":
+            continue
+        launches = dict(kernels.LAUNCHES)
+        require(reads == {}, f"the carved stream read the host: {reads}")
+        backends = {m._dispatch_config(p).accumulate_impl for p, _ in scans}
+        require(backends == {"seg"}, f"carved scans dispatched to {backends}")
+        require(launches["estimate_normals"] == len(scans),
+                f"K2 launched {launches['estimate_normals']} times in "
+                f"{len(scans)} carved inserts")
+        for k in ("fused_tile_partials", "merge_partials", "tile_partials",
+                  "accumulate_segments"):
+            require(launches[k] == 0, f"{k} launched on the carved stream")
+        samples = [int(x["n_carve_samples"]) for x in metrics]
+        dropped = [int(x["n_carve_dropped"]) for x in metrics]
+        voxels = [int(x["n_carved_voxels"]) for x in metrics]
+        require(min(samples) > 0 and min(dropped) >= 0,
+                f"carve counters {samples} {dropped}")
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    log(f"phase 10 carved stream ({json.dumps(CARVE)}): "
+        f"{med['on']:.2f} scans/s with carving, {med['off']:.2f} without "
+        f"(turns off/on/on/off: {[round(r, 2) for r in rates['off']]} / "
+        f"{[round(r, 2) for r in rates['on']]}); per scan n_carve_samples "
+        f"{samples}, n_carve_dropped {dropped}, n_carved_voxels {voxels}; "
+        f"host reads {reads}; launches {launches}")
+    del m
+
+    # one scan carved on the card and on the CPU from the same state
+    base = TSDFMap(config=plain, device="cuda")
+    base.insert(*scans[0])
+    st = state_to_numpy(base.state)
+    del base
+    pts, pos = scans[1]
+    pad = padded(pts, carving)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = state_from_numpy(st, dev)
+        args = (torch.from_numpy(pad).to(dev), len(pts),
+                torch.from_numpy(pos).to(dev))
+        state, met = carve.carve_step(state, *args, carving)
+        out[dev] = (state.pool_sd.cpu(), state.pool_w.cpu(),
+                    {k: int(v) for k, v in met.items()})
+        if dev == "cuda":
+            carve_ms = cuda_ms(lambda: carve.carve_step(state, *args,
+                                                        carving))
+        del state
+    (sd_g, w_g, met_g), (sd_c, w_c, met_c) = out["cuda"], out["cpu"]
+    differ = int(((sd_g != sd_c) | (w_g != w_c)).any(1).sum())
+    differ_voxels = int(((sd_g != sd_c) | (w_g != w_c)).sum())
+    require(differ_voxels == 0 and met_g == met_c,
+            f"carve on the card vs the CPU: {differ_voxels} voxels in "
+            f"{differ} blocks differ; counters {met_g} vs {met_c}")
+    log(f"phase 10 one scan ({len(pts)} points, "
+        f"{carving.carve_steps * pad.shape[0] // carving.carve_subsample} "
+        f"carve samples at capacity): card vs CPU differing voxels "
+        f"{differ_voxels}, counters {met_g}; carve {carve_ms:.3f} ms per "
+        f"insert (CUDA events, median of 10)")
+    n_car0, n_car1, n_wall = carve_scene()
+    require(n_car0 > 0 and n_car1 == 0 and n_wall > 0,
+            f"parked car: {n_car0} -> {n_car1} car vertices, {n_wall} wall")
+    log(f"phase 10 parked car (examples/demo_carve.py): car vertices "
+        f"{n_car0} after scan 1, {n_car1} after 17 scans; wall vertices "
+        f"{n_wall}")
+    return launches
+
+
+def run_checkpoint(tmp):
+    """Phase 11: checkpoint a stream map with pending rotations, load it on
+    the card and keep inserting into both; returns the launch counts of
+    the 2 scans."""
+    from chad_tsdf_tpu_torch import TSDFMap, kernels
+    from chad_tsdf_tpu_torch.io import load_checkpoint, save_checkpoint
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+
+    scans = ks.make_scans(14)
+    scfg = ks.stream_config()
+    a = TSDFMap(config=scfg, device="cuda")
+    for pts, pos in scans[:12]:
+        a.insert(pts, pos)
+    require(len(a._pending) == 2, f"{len(a._pending)} pending before save")
+    path = os.path.join(tmp, "stream.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, a)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    b = load_checkpoint(path)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    require(b.device.type == "cuda", f"loaded onto {b.device}")
+    kernels.reset_launches()
+    for pts, pos in scans[12:]:
+        a.insert(pts, pos)
+        b.insert(pts, pos)
+    launches = dict(kernels.LAUNCHES)
+    require(launches["estimate_normals"] == 4,
+            f"K2 launched {launches['estimate_normals']} times in 4 inserts")
+    bit_equal_maps(a, b, "checkpoint reloaded")
+    ca, sa = a.voxel_samples()
+    cb, sb = b.voxel_samples()
+    require(np.array_equal(ca, cb) and np.array_equal(sa, sb),
+            "checkpoint reloaded: voxel_samples differ")
+    require(a.stats() == b.stats(), "checkpoint reloaded: stats differ")
+    mb = os.path.getsize(path) / 1e6
+    log(f"phase 11 checkpoint of the stream map (2 pending rotations, "
+        f"{len(a.submaps)} submaps after 2 more scans): save {save_ms:.1f} "
+        f"ms, load {load_ms:.1f} ms, file {mb:.2f} MB; pools, directories "
+        f"and {ca.shape[0]} voxel samples bit-equal after 2 more scans; "
+        f"launches {launches}")
+    return launches
+
+
+def run_loop_closure(tmp):
+    """Phase 12: a drifted second pass over the sphere corrected by loop
+    closure; returns the launch counts of the two passes."""
+    from chad_tsdf_tpu_torch import TSDFMap, kernels
+    from chad_tsdf_tpu_torch.mesh import read_ply
+    from chad_tsdf_tpu_torch.mesh.rmse import analytic_sphere_rmse
+    from chad_tsdf_tpu_torch.slam import posegraph as pg
+
+    drift = np.float32([0.35, 0.0, 0.0])
+    pos2 = np.float32([0.6, 0.0, 0.0])
+    loop = np.eye(4)
+    loop[:3, 3] = pos2
+    pts = sphere(N_DENSE, 5.0, 420)
+    kernels.reset_launches()
+    m = TSDFMap(0.05, 0.1, device="cuda")
+    m.insert(pts, np.zeros(3, np.float32))
+    m.finalize_active()
+    m.insert(pts + drift, pos2 + drift)
+    m.finalize_active()
+    launches = dict(kernels.LAUNCHES)
+    for k in ("fused_tile_partials", "estimate_normals", "merge_partials"):
+        require(launches[k] > 0, f"{k} launched 0 times in the two passes")
+
+    def rmse(name):
+        path = os.path.join(tmp, name)
+        m.save(path)
+        return analytic_sphere_rmse(read_ply(path).vertices, 5.0)
+
+    before = rmse("drifted.ply")
+    anchors = np.stack([sm.anchor for sm in m.submaps]).astype(np.float32)
+    opt_ms = []
+    for _ in range(2):          # the first call pays one-time set-up
+        t0 = time.perf_counter()
+        stats = m.optimize_loop_closures(loop_edges=[(0, 1, loop, 1000.0)])
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+    corr = m.submaps[1].corrected
+    require(corr is not None and m.submaps[0].corrected is None,
+            "loop closure: corrections not where expected")
+    t_err = float(np.abs(corr[:3, 3] + drift).max())
+    require(t_err < 0.01, f"correction {corr[:3, 3]}, expected {-drift}")
+    graph = pg.add_edge(pg.make_odometry_edges(anchors), 0, 1,
+                        loop.astype(np.float32), 1000.0)
+    cpu, cpu_stats = pg.optimize_poses(graph, anchors, iterations=20,
+                                       damping=1e-6, huber_delta=1.0,
+                                       device="cpu")
+    card = np.stack([(sm.corrected if sm.corrected is not None
+                      else np.eye(4)) @ a for sm, a in zip(m.submaps,
+                                                            anchors)])
+    pose_err = float(np.abs(card - cpu).max())
+    require(pose_err < 1e-4 and cpu_stats["gated_edges"] ==
+            stats["gated_edges"] and cpu_stats["iterations"] ==
+            stats["iterations"],
+            f"card vs CPU solve: {pose_err}, {stats} vs {cpu_stats}")
+    after = rmse("corrected.ply")
+    require(after < 0.1 * 0.05 and before > 10 * after,
+            f"sphere RMSE {before} -> {after}")
+    log(f"phase 12 loop closure (2^20-point r = 5 m sphere, 0.35 m drift): "
+        f"optimize_loop_closures {opt_ms[0]:.1f} ms (first call), "
+        f"{opt_ms[1]:.1f} ms (second), {stats}; correction "
+        f"{corr[:3, 3].tolist()} (error {t_err:.2e} m); poses vs the CPU "
+        f"solve {pose_err:.2e}; mesh RMSE to the sphere {before:.6f} -> "
+        f"{after:.6f} m; launches in the two passes {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -905,7 +1197,14 @@ def main() -> int:
     tile_ovf = int(m.state.tile_overflow)
     require(tile_ovf == 0, f"dense sphere tile_overflow {tile_ovf}")
     require(n_blocks > 0, "no blocks allocated")
-    require(met["host_reads"] == 1, "host reads per insert != 1")
+    require(met["host_reads"] == 0, "the fused insert read the host")
+    msync = TSDFMap(0.05, 0.1, device="cuda")
+    msync.insert(dense, origin0)
+    mine, syncs = integrate_syncs(lambda: [msync.insert(dense, origin0)
+                                           for _ in range(3)])
+    del msync
+    require(not mine, f"fused inserts synchronised in core/integrate.py: "
+                      f"{mine}")
     lossy = {k: int(getattr(m.state, k)) for k in
              ("point_overflow", "sample_overflow", "block_overflow",
               "touched_overflow")}
@@ -920,6 +1219,8 @@ def main() -> int:
         f"points/s; n_blocks {n_blocks}, tile_overflow {tile_ovf}, "
         f"host reads/insert {met['host_reads']}, n_valid_samples "
         f"{met['n_valid_samples']}; launches {dense_launches}")
+    log(f"phase 3 sync debug mode over 3 fused inserts: synchronising "
+        f"calls from core/integrate.py {mine}; from anywhere {syncs}")
     log(f"phase 3 save (device marching cubes): {save_ms:.1f} ms (sub fin "
         f"{m.last_metrics['sub_fin_ms']:.1f} ms, mesh "
         f"{m.last_metrics['mesh_ms']:.1f} ms: voxel samples "
@@ -940,10 +1241,11 @@ def main() -> int:
         impl_ms = []
         for _ in range(5):
             t0 = time.perf_counter()
-            mb.insert(dense, origin0)
+            mmet = mb.insert(dense, origin0)
             torch.cuda.synchronize()
             impl_ms.append((time.perf_counter() - t0) * 1e3)
         impl_launches = dict(kernels.LAUNCHES)
+        require(mmet["host_reads"] == 0, f"the {impl} insert read the host")
         needed = (("accumulate_segments",) if impl == "pallas" else
                   ("tile_partials", "merge_partials"))
         for name in needed:
@@ -973,10 +1275,13 @@ def main() -> int:
     kernels.reset_launches()
     accumulate.accumulate_xla = no_scatter
     try:
-        ms_.insert(sparse, origin0)
+        smet = ms_.insert(sparse, origin0)
+        require(ms_._deferred is not None, "the fused insert settled itself")
+        ms_.state                  # settles: the fallback runs here
     finally:
         accumulate.accumulate_xla = scatter
     sparse_launches = dict(kernels.LAUNCHES)
+    require(smet["host_reads"] == 0, "the sparse fused insert read the host")
     for name in ("tile_partials", "accumulate_segments"):
         require(sparse_launches[name] > 0,
                 f"{name} launched 0 times on the sparse insert")
@@ -1040,6 +1345,15 @@ def main() -> int:
     del m, stream_map
     torch.cuda.empty_cache()
 
+    # ---- phases 10-12: carving, checkpoints, loop closure ----
+    carve_launches = run_carve()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_launches = run_checkpoint(tmp)
+        torch.cuda.empty_cache()
+        loop_launches = run_loop_closure(tmp)
+    torch.cuda.empty_cache()
+
     # ---- result ----
     launches = dict(dense_launches,
                     tile_partials=sparse_launches["tile_partials"],
@@ -1059,7 +1373,10 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r.get("library_ms"),
-                    "launches_stream": stream_launches[name]})
+                    "launches_stream": stream_launches[name],
+                    "launches_carve": carve_launches[name],
+                    "launches_checkpoint": ckpt_launches[name],
+                    "launches_loop_closure": loop_launches[name]})
     log(f"phase 2 details: {json.dumps(results)}")
     print(json.dumps({"kernels": out}))
     print(smi)

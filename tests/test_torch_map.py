@@ -130,16 +130,17 @@ def test_rotation_and_finalize_match_jax(tmp_path):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    for kw in ({"accumulate_impl": "sample_tile"}, {"carve_steps": 4},
+    for kw in ({"accumulate_impl": "sample_tile"},
                {"sparse_impl": "sample_tile"}):
         with pytest.raises(NotImplementedError):
             TSDFMap(config=MapConfig(**kw), device="cpu")
-    # ported since: the sparse backend, packed ingest, the .grid dump and
-    # device marching cubes
+    # ported since: the sparse backend, packed ingest, the .grid dump,
+    # device marching cubes and carving
     monkeypatch.chdir(tmp_path)
     for kw in ({"accumulate_impl": "seg"}, {"packed_ingest": True},
                {"accumulate_impl": "seg", "packed_ingest": True},
-               {"save_grid": True}, {"mesh_impl": "device"}):
+               {"save_grid": True}, {"mesh_impl": "device"},
+               {"carve_steps": 4}):
         m = TSDFMap(config=MapConfig(max_points=1024, block_capacity=1024,
                                      touched_capacity=1024, **kw),
                     device="cpu")
@@ -155,11 +156,13 @@ def test_unported_options_raise(tmp_path, monkeypatch):
 
 def test_port_imports_no_jax(tmp_path):
     """Importing the port — the KITTI module, the stream and mesh-scale
-    scripts and the mesh modules too — then a rotating two-scan packed
-    ``seg`` stream, ``stats()``, a save through device marching cubes with
-    the ``.grid`` dump, ``leaf_arrays``, ``raycast`` and ``merge`` on the
-    CPU (the DAG built through the native runtime where g++ builds it),
-    loads neither jax nor any module of the JAX package.  It runs in a
+    scripts, the mesh modules, carving, checkpoints and the pose graph
+    too — then a rotating two-scan packed ``seg`` stream with carving,
+    ``stats()``, a save through device marching cubes with the ``.grid``
+    dump, ``leaf_arrays``, ``raycast``, ``merge``, a deferred ``fused``
+    insert, a checkpoint saved and loaded, and a loop closure on the CPU
+    (the DAG built through the native runtime where g++ builds it), loads
+    neither jax nor any module of the JAX package.  It runs in a
     temporary directory: ``save`` writes ``hashgrid.grid`` there."""
     code = """
 import os, sys
@@ -172,17 +175,20 @@ import chad_tsdf_tpu_torch.scripts.mesh_scale
 import chad_tsdf_tpu_torch.profile_insert
 import chad_tsdf_tpu_torch.mesh.device_mc, chad_tsdf_tpu_torch.mesh.grid
 import chad_tsdf_tpu_torch.mesh.optimize, chad_tsdf_tpu_torch.mesh.rmse
+import chad_tsdf_tpu_torch.core.carve, chad_tsdf_tpu_torch.io.checkpoint
+import chad_tsdf_tpu_torch.slam.posegraph
 from chad_tsdf_tpu_torch import TSDFMap, MapConfig
+from chad_tsdf_tpu_torch.io import load_checkpoint, save_checkpoint
 rng = np.random.default_rng(0)
 d = rng.normal(size=(4096, 3))
 pts = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
 cfg = MapConfig(max_points=4096, block_capacity=4096, touched_capacity=4096,
                 accumulate_impl="seg", packed_ingest=True,
-                mesh_impl="device", save_grid=True)
+                mesh_impl="device", save_grid=True, carve_steps=8)
 m = TSDFMap(config=cfg, device="cpu")
 m.insert(pts, np.zeros(3, np.float32))
 shift = np.float32([6.0, 0.0, 0.0])
-m.insert(pts + shift, shift)
+assert m.insert(pts + shift, shift)["n_carve_samples"] > 0
 assert m.stats()["n_submaps"] == 1
 m.save("m.ply")
 assert os.path.getsize("hashgrid.grid") > 20
@@ -191,6 +197,17 @@ other = TSDFMap(config=cfg, device="cpu")
 other.insert(pts * 2, np.zeros(3, np.float32))
 m.merge(other)
 assert m.leaf_arrays()[0].shape[0] > 0
+fused = MapConfig(max_points=4096, block_capacity=4096,
+                  touched_capacity=4096, accumulate_impl="fused", tile_nb=16)
+f = TSDFMap(config=fused, device="cpu")
+f.insert(pts, np.zeros(3, np.float32))
+assert f._deferred is not None
+save_checkpoint("c.npz", f)
+assert int(load_checkpoint("c.npz", device="cpu").state.tile_overflow) > 0
+loop = np.eye(4)
+loop[:3, 3] = shift
+assert m.optimize_loop_closures(loop_edges=[(0, 1, loop, 10.0)])[
+    "iterations"] > 0
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "chad_tsdf_tpu" or k.startswith("chad_tsdf_tpu."))
 assert not bad, bad
