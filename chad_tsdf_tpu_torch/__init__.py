@@ -13,6 +13,10 @@ of the framework-free host modules (``config.MapConfig``, ``core/dag.py``,
     m = TSDFMap(sdf_res=0.05, sdf_trunc=0.1)          # on the card
     m.insert(points, position)       # numpy (N,3), (3,)
     m.save("mesh.ply")
+
+The sharded map is ``chad_tsdf_tpu_torch.parallel.ShardedTSDFMap``, as in
+the JAX package: the same surface over a ``parallel.make_mesh`` mesh of
+Morton-range shards, on one card or several, or across processes.
 """
 
 from .config import MapConfig

@@ -105,23 +105,15 @@ def carve_sample_keys(px, py, pz, n_points: int, position, origin_blocks,
     return bkey.reshape(-1), okey.reshape(-1)
 
 
-def carve_step_impl(state: ActiveMapState, points, n_points: int, position,
-                    config: MapConfig):
-    """Accumulate one cloud's free-space evidence into the pool, in place.
-
-    ``points`` is the (padded) f32[N, 3] cloud the insert took; every
-    ``carve_subsample``-th row spawns a carve ray.  Returns ``(new_state,
-    metrics)`` with int32 ``n_carve_samples`` (samples that hit allocated
-    blocks), ``n_carved_voxels`` (distinct voxels updated) and
-    ``n_carve_dropped`` (samples in unallocated space or beyond
-    ``touched_capacity`` blocks: dropped by design, not data loss).
-    """
-    cb = config.block_capacity
-    reserved_row = cb - 1
+def carve_entries(points, n_points: int, position, origin_blocks,
+                  config: MapConfig):
+    """One cloud's free-space samples as one entry per voxel (steps 1-2
+    of the module docstring).  Returns ``(e_b, e_o, e_c, n_valid)``: an
+    ascending block-key prefix with INT32_MAX beyond, the voxels' offsets,
+    their sample counts and the number of valid samples."""
     dev = points.device
     bkey, okey = carve_sample_keys(points[:, 0], points[:, 1], points[:, 2],
-                                   n_points, position, state.origin_blocks,
-                                   config)
+                                   n_points, position, origin_blocks, config)
     s = bkey.shape[0]
     key = torch.sort((bkey.to(torch.int64) << 32) |
                      okey.to(torch.int64)).values
@@ -142,21 +134,38 @@ def carve_step_impl(state: ActiveMapState, points, n_points: int, position,
     e_b = torch.where(ev, sb[at], INT32_MAX)
     e_o = torch.where(ev, so[at], 0)
     e_c = torch.where(ev, end_pos - prev_pos, 0)
+    return e_b, e_o, e_c, n_valid
 
-    # LOOKUP ONLY (erosion-only rule): blocks absent from the directory
-    # get the reserved row and their entries are dropped
-    t_cap = min(config.touched_capacity, s)
+
+def lookup_blocks(state: ActiveMapState, e_b, config: MapConfig):
+    """The entries' touched blocks looked up in the sorted directory
+    (LOOKUP ONLY: the erosion-only rule allocates nothing).  Returns
+    ``(flags, tb_keys, found, slots)`` per touched block: ``found`` is
+    whether the state holds it, ``slots`` its pool row where found."""
+    cb = config.block_capacity
+    t_cap = min(config.touched_capacity, e_b.shape[0])
     flags, _, _, _, tvalid, tb_keys = integrate._touched_blocks(e_b, t_cap)
     pos = torch.searchsorted(state.dir_keys, tb_keys).to(torch.int32)
     pos_c = torch.clamp(pos, max=cb - 1)
     found = (state.dir_keys[pos_c] == tb_keys) & tvalid
-    tb_slots = torch.where(found, state.dir_slots[pos_c], reserved_row)
+    return flags, tb_keys, found, state.dir_slots[pos_c]
+
+
+def apply_entries(state: ActiveMapState, e_b, e_o, e_c, n_valid, flags,
+                  apply, slots, config: MapConfig):
+    """Add the entries of the touched blocks where ``apply`` holds into
+    the pool, in place (step 3); the others are dropped and counted.
+    Returns ``(state, metrics)`` as :func:`carve_step_impl`."""
+    reserved_row = config.block_capacity - 1
+    t_cap = apply.shape[0]
+    s = e_b.shape[0]
+    tb_slots = torch.where(apply, slots, reserved_row)
     e_slot, kept = integrate._slot_per_entry(flags, tb_slots, t_cap,
                                              reserved_row)
     ok = (e_b != INT32_MAX) & kept
 
     # dead entries add zero into the reserved row, spread over its lanes
-    lane = torch.arange(s, dtype=torch.int64, device=dev) & 511
+    lane = torch.arange(s, dtype=torch.int64, device=e_b.device) & 511
     idx = torch.where(ok, e_slot.to(torch.int64) * 512 + e_o,
                       reserved_row * 512 + lane)
     count = torch.where(ok, e_c, 0)
@@ -171,6 +180,24 @@ def carve_step_impl(state: ActiveMapState, points, n_points: int, position,
                "n_carved_voxels": ok.sum(dtype=torch.int32),
                "n_carve_dropped": n_valid - n_hit}
     return state, metrics
+
+
+def carve_step_impl(state: ActiveMapState, points, n_points: int, position,
+                    config: MapConfig):
+    """Accumulate one cloud's free-space evidence into the pool, in place.
+
+    ``points`` is the (padded) f32[N, 3] cloud the insert took; every
+    ``carve_subsample``-th row spawns a carve ray.  Returns ``(new_state,
+    metrics)`` with int32 ``n_carve_samples`` (samples that hit allocated
+    blocks), ``n_carved_voxels`` (distinct voxels updated) and
+    ``n_carve_dropped`` (samples in unallocated space or beyond
+    ``touched_capacity`` blocks: dropped by design, not data loss).
+    """
+    e_b, e_o, e_c, n_valid = carve_entries(points, n_points, position,
+                                           state.origin_blocks, config)
+    flags, _, found, slots = lookup_blocks(state, e_b, config)
+    return apply_entries(state, e_b, e_o, e_c, n_valid, flags, found, slots,
+                         config)
 
 
 def carve_step(state: ActiveMapState, points, n_points: int, position,

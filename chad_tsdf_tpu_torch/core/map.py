@@ -36,9 +36,10 @@ than falling back to the CPU.  ``accumulate_impl`` may be ``auto``,
 ``fused``, ``tile``, ``pallas``, ``xla`` or ``seg`` (core/integrate.py);
 under ``auto`` on CUDA each scan goes to the dense ``fused`` backend or,
 below ``sparse_points_per_block``, to ``sparse_impl``.
-``packed_ingest`` sends int16 points to the device.  Not ported yet
-(ROADMAP.md): the ``sample_tile`` backend, which raises
-NotImplementedError, and the sharded map.
+``packed_ingest`` sends int16 points to the device.  The sharded map
+(``parallel.ShardedTSDFMap``) is a subclass that keeps its active map in
+``state_stack``, one state per shard.  Not ported (ROADMAP.md): the
+``sample_tile`` backend, which raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -352,14 +353,19 @@ class TSDFMap:
             a[:3, 3] = np.asarray(positions[0], np.float64)
         return a
 
-    def _finalize_active(self) -> None:
-        """Deferred rotation: stash the rotated-out device state
+    def _stash_active(self):
+        """The rotated-out active map as a pending stub
         (``submap_mod.start_finalize``: no host read, no device work on the
-        stream); counter read-back, compaction, transfer and DAG build all
-        happen at :meth:`_drain_pending`."""
-        self._pending.append(submap_mod.start_finalize(
+        stream)."""
+        return submap_mod.start_finalize(
             self.state, self.config, self._positions,
-            anchor=self._anchor_from(self._positions)))
+            anchor=self._anchor_from(self._positions))
+
+    def _finalize_active(self) -> None:
+        """Deferred rotation: stash the rotated-out active map; counter
+        read-back, compaction, transfer and DAG build all happen at
+        :meth:`_drain_pending`."""
+        self._pending.append(self._stash_active())
         # bound the device memory the stubs hold (a whole pool each), by
         # count and by bytes; the oldest has waited longest
         while (len(self._pending) > self.config.max_pending_finalize or
@@ -387,9 +393,12 @@ class TSDFMap:
         if self._active_nonempty():
             self._finalize_active()
         self._drain_pending()
-        self.state = None
+        self._clear_active()
         self._positions = []
         self._active_snapshot = None
+
+    def _clear_active(self) -> None:
+        self.state = None
 
     # ------------------------------------------------------------------
     def _all_submaps(self) -> list[submap_mod.Submap]:
@@ -401,13 +410,17 @@ class TSDFMap:
         if self._active_nonempty():
             if self._active_snapshot is None:
                 scratch = dag.NodeLevels()
-                sm = submap_mod.finalize(self.state, scratch, self.config,
-                                         self._positions)
+                sm = self._snapshot_active(scratch)
                 sm.levels = scratch
                 sm.anchor = self._anchor_from(self._positions)
                 self._active_snapshot = sm
             out.append(self._active_snapshot)
         return out
+
+    def _snapshot_active(self, levels: dag.NodeLevels) -> submap_mod.Submap:
+        """The active map finalized into ``levels``."""
+        return submap_mod.finalize(self.state, levels, self.config,
+                                   self._positions)
 
     def _sm_levels(self, sm: submap_mod.Submap) -> dag.NodeLevels:
         return sm.levels if sm.levels is not None else self.levels
@@ -667,14 +680,11 @@ class TSDFMap:
         runs in ``slam/posegraph.py`` on the map's device; each submap's
         correction ``T_opt[i] @ inv(anchor[i])`` is then applied to its
         voxels at mesh and query time.  A non-empty active map takes part
-        as a trailing node through its snapshot.  ``mesh`` (a sharded
-        reduction) is not ported yet.  Returns the optimizer's stats.
+        as a trailing node through its snapshot.  With ``mesh``
+        (``parallel.make_mesh``) the edges are split over its shards and
+        their normal equations summed.  Returns the optimizer's stats.
         """
         from ..slam import posegraph as pg
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported to PyTorch yet (see ROADMAP.md): "
-                "optimize_loop_closures(mesh=...)")
         if self._active_nonempty():
             subs = self._all_submaps()
         else:
@@ -691,7 +701,8 @@ class TSDFMap:
                                 np.asarray(z, np.float32), float(w))
         poses_opt, stats = pg.optimize_poses(
             graph, anchors.astype(np.float32), iterations=iterations,
-            damping=damping, huber_delta=huber_delta, device=self.device)
+            damping=damping, mesh=mesh, huber_delta=huber_delta,
+            device=self.device)
         for sm, a, p in zip(subs, anchors, poses_opt):
             corr = p.astype(np.float64) @ np.linalg.inv(a)
             sm.corrected = None if np.allclose(corr, np.eye(4), atol=1e-7) \

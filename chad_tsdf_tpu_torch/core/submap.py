@@ -1,5 +1,5 @@
 """Submap finalization: active block pool -> compressed dual DAG — PyTorch
-port of ``chad_tsdf_tpu/core/submap.py`` (the single-device half).
+port of ``chad_tsdf_tpu/core/submap.py``.
 
 Replaces the reference's post-order DFS over the active octree (reference:
 include/chad/detail/submap.hpp:10-106):
@@ -18,6 +18,12 @@ stashes the rotated-out state in a :class:`PendingSubmap`, and the counter
 read-back, the compaction, the device->host copy and the DAG build happen
 at the map's next drain.  The weight clamp uses min (the intent), not the
 reference's always-255 ``std::max`` (submap.hpp:92-93).
+
+A Morton-sharded active map (``parallel/``) finalizes through
+:func:`start_finalize_sharded` / :func:`finish_finalize_sharded`: each
+shard's clusters are compacted as above, and a block that several shards
+hold (a halo row deferred by routing, or a fallback's rows) is merged
+exactly, by summing its raw rows before quantization.
 """
 
 from __future__ import annotations
@@ -376,3 +382,201 @@ def _add_empty_chain(levels: NodeLevels) -> int:
         kids[0, 0] = addr[0]
         addr = levels.nodes[depth].add_batch(kids)
     return int(addr[0])
+
+
+# ---------------------------------------------------------------------------
+# Sharded finalization (parallel/)
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def sum_duplicate_rows(keys: np.ndarray, *rows: np.ndarray):
+    """Sort ``keys`` (stable) and sum the rows of equal keys, each of
+    ``rows`` (n, ...) in the sorted order: the exact merge of block rows
+    that two pools hold for one block.  Returns (unique keys, summed rows
+    ...)."""
+    order = np.argsort(keys, kind="stable")
+    keys = keys[order]
+    rows = [r[order] for r in rows]
+    if keys.size:
+        starts = np.flatnonzero(
+            np.concatenate([[True], keys[1:] != keys[:-1]]))
+        keys = keys[starts]
+        rows = [np.add.reduceat(r, starts, axis=0) for r in rows]
+    return (keys, *rows)
+
+
+def _quantize_pack_rows(codes: np.ndarray, sd: np.ndarray, w: np.ndarray,
+                        config: MapConfig):
+    """(world block codes u64[n], raw (sd sum, weight) rows (n, 512)) ->
+    sorted unique quantized clusters (codes, tsdf words, weight words).
+    Duplicate block codes merge EXACTLY: their rows sum before
+    quantization, as in one pool that saw all the samples.  Host-side; the
+    quantization is :func:`_extract_blocks`'."""
+    ucodes, sd_m, w_m = sum_duplicate_rows(codes, sd, w)
+
+    occupied = w_m > 0
+    mean = sd_m / np.maximum(w_m, np.float32(1.0))
+    q_sd = np.where(occupied,
+                    codec.encode_sd(torch.from_numpy(mean),
+                                    config.sdf_trunc).numpy(),
+                    np.uint8(codec.EMPTY)).astype(np.uint8)
+    q_w = np.where(occupied, codec.encode_weight(torch.from_numpy(w_m))
+                   .numpy(), np.uint8(codec.EMPTY)).astype(np.uint8)
+    nonempty = occupied.reshape(-1, 64, 8).any(-1).reshape(-1)
+    cluster_codes = (ucodes[:, None] << np.uint64(6)) | \
+        np.arange(64, dtype=np.uint64)[None, :]
+    words_t = codec.pack_cluster_u64(q_sd.reshape(-1, 8)[nonempty])
+    words_w = codec.pack_cluster_u64(q_w.reshape(-1, 8)[nonempty])
+    return cluster_codes.reshape(-1)[nonempty], words_t, words_w
+
+
+def _count_voxels(words_t: np.ndarray) -> int:
+    shifts = (np.uint64(8) * np.arange(8, dtype=np.uint64))[None, :]
+    return int((((words_t[:, None] >> shifts) & np.uint64(0xFF))
+                != np.uint64(codec.EMPTY)).sum())
+
+
+def _pow2(n: int) -> int:
+    return max(1, 1 << (max(n, 1) - 1).bit_length())
+
+
+def _fin_counters(state: ActiveMapState, cb: int):
+    """i32[10] = [n_blocks, live clusters, point / sample / block / touched
+    / tile overflow, origin_blocks x y z]: :func:`_rotation_counters` with
+    the tile counter."""
+    c = _rotation_counters(state, cb)
+    return torch.cat([c[:6], state.tile_overflow.reshape(1), c[6:]])
+
+
+def _local_gather(tensors) -> np.ndarray:
+    """Every shard's value, stacked in shard order on the host, when the
+    states at hand are all the shards."""
+    return np.stack([t.cpu().numpy() for t in tensors])
+
+
+@dataclasses.dataclass
+class PendingShardedSubmap:
+    """A Morton-sharded active map's compacted clusters, on the host,
+    awaiting the DAG build.
+
+    ``shards``: per live shard (uint32 buffer of
+    :func:`_extract_clusters_compact`, n_pad, cap, count).  ``wb_dup``:
+    world block codes held by more than one shard; their clusters are
+    dropped from every shard's buffer at :meth:`finish` and replaced by
+    ``dup_clusters``, merged exactly from the raw rows.
+    """
+    shards: list
+    wb_dup: np.ndarray
+    dup_clusters: tuple | None
+    origin_blocks: np.ndarray
+    positions: list
+    anchor: object = None
+
+    def finish(self, levels: NodeLevels, config: MapConfig) -> Submap:
+        return finish_finalize_sharded(self, levels, config)
+
+
+def start_finalize_sharded(states: list, config: MapConfig,
+                           positions: list, anchor=None,
+                           gather=None) -> PendingShardedSubmap:
+    """Finalize a sharded active map up to the host DAG build (a drain
+    point: it reads the device).
+
+    Never gathers whole pools: one counter vector per shard; one compacted
+    cluster buffer per shard at a size common to all (the largest shard's
+    buckets); and, only when shards share a block key, those few blocks'
+    raw rows, summed over the shards and quantized here.  ``gather``
+    stacks one equal-shape tensor per state in ``states`` into a host
+    array over EVERY shard of the mesh (``ShardMesh.gather``); by default
+    ``states`` are all the shards.
+    """
+    gather = gather or _local_gather
+    cb = config.block_capacity
+    cnt = gather([_fin_counters(st, cb) for st in states])
+    origin = cnt[0, 7:10].astype(np.int32)
+    nbs, counts = cnt[:, 0], cnt[:, 1]
+    _warn_lossy(cnt[:, 2:6].sum(axis=0))
+    live = [i for i in range(len(nbs)) if nbs[i] > 0 and counts[i] > 0]
+    if not live:
+        return PendingShardedSubmap([], np.zeros(0, np.uint64), None, origin,
+                                    list(positions), anchor)
+
+    n_pad = _pow2(int(nbs.max()))
+    cap = cap_bucket(int(counts.max()))
+    bufs = gather([_extract_clusters_compact(st, n_pad, cap, config.sdf_trunc)
+                   for st in states]).astype(np.uint32)
+
+    wb_dup = np.zeros(0, np.uint64)
+    dup_clusters = None
+    if len(live) > 1:
+        keys = gather([st.dir_keys[:n_pad] for st in states])
+        all_keys = np.concatenate([keys[i, :nbs[i]] for i in live])
+        uk, kcounts = np.unique(all_keys, return_counts=True)
+        dup = uk[kcounts > 1]
+        if dup.size:
+            wb_dup = morton.np_block_key_to_world63(dup, origin,
+                                                    config.block_bits)
+            dupk = np.full(_pow2(int(dup.size)), INT32_MAX, np.int32)
+            dupk[:dup.size] = dup
+            rows = [_dup_rows(st, torch.from_numpy(dupk).to(st.device), cb)
+                    for st in states]
+            sd = gather([r[0] for r in rows]).sum(axis=0)[:dup.size]
+            w = gather([r[1] for r in rows]).sum(axis=0)[:dup.size]
+            dup_clusters = _quantize_pack_rows(wb_dup, sd, w, config)
+
+    shards = [(bufs[i], n_pad, cap, int(counts[i])) for i in live]
+    return PendingShardedSubmap(shards, wb_dup, dup_clusters, origin,
+                                list(positions), anchor)
+
+
+def _dup_rows(state: ActiveMapState, dupk, cb: int):
+    """The raw (sd, w) rows of the blocks ``dupk`` (INT32_MAX = none) in
+    one state, zero where the state lacks the block."""
+    pos = torch.clamp(torch.searchsorted(state.dir_keys, dupk), max=cb - 1)
+    found = (state.dir_keys[pos] == dupk) & (dupk != INT32_MAX)
+    slots = state.dir_slots[pos].long()
+    return (torch.where(found[:, None], state.pool_sd[slots], 0.0),
+            torch.where(found[:, None], state.pool_w[slots], 0.0))
+
+
+def finish_finalize_sharded(pending: PendingShardedSubmap,
+                            levels: NodeLevels,
+                            config: MapConfig) -> Submap:
+    """Materialize a PendingShardedSubmap into the DAG (host)."""
+    codes_l, wt_l, ww_l = [], [], []
+    for buf, n_pad, cap, count in pending.shards:
+        codes, wt, ww, _ = _unpack_cluster_buf(buf, n_pad, cap, count,
+                                               pending.origin_blocks, config)
+        if pending.wb_dup.size:
+            keep = ~np.isin(codes >> np.uint64(6), pending.wb_dup)
+            codes, wt, ww = codes[keep], wt[keep], ww[keep]
+        codes_l.append(codes)
+        wt_l.append(wt)
+        ww_l.append(ww)
+    if pending.dup_clusters is not None:
+        for lst, a in zip((codes_l, wt_l, ww_l), pending.dup_clusters):
+            lst.append(a)
+    if not codes_l:
+        z = np.zeros(0, np.uint64)
+        sm = build_submap(levels, z, z.copy(), z.copy(), pending.positions,
+                          0)
+    else:
+        codes = np.concatenate(codes_l)
+        order = np.argsort(codes, kind="stable")
+        words_t = np.concatenate(wt_l)[order]
+        sm = build_submap(levels, codes[order], words_t,
+                          np.concatenate(ww_l)[order], pending.positions,
+                          _count_voxels(words_t))
+    sm.anchor = pending.anchor
+    return sm
+
+
+def finalize_sharded(states: list, levels: NodeLevels, config: MapConfig,
+                     positions: list) -> Submap:
+    """Finalize a Morton-sharded active map (per-shard states, all the
+    shards) into one Submap, synchronously."""
+    return finish_finalize_sharded(
+        start_finalize_sharded(states, config, positions), levels, config)

@@ -15,9 +15,11 @@ src/chad/detail/lvr2.cpp:170-200, 317-319).  A checkpoint is one ``.npz``:
   per-level dedup counters.  Versions 1 and 2 load.
 
 Saving is a drain point: it materializes the deferred rotations, settles
-the last insert and reads the occupied prefix back from the card.  The
-JAX package's sharded branches (a ``ShardedTSDFMap``'s merged state, and
-``load_checkpoint(mesh=...)``) are not ported yet.
+the last insert and reads the occupied prefix back from the card.  A
+``ShardedTSDFMap`` checkpoints as its shards' states merged exactly on the
+host, so a checkpoint does not depend on the shard count: one written on N
+shards (by either package) resumes on M shards with
+``load_checkpoint(mesh=...)``, or on one device.
 """
 
 from __future__ import annotations
@@ -37,9 +39,23 @@ from ..core.submap import Submap
 FORMAT_VERSION = 2
 
 
+def _active_state(m: TSDFMap):
+    """The map's active state (the last insert settled); a sharded map's
+    shards, occupied rows only, gathered from every process and merged on
+    the host."""
+    if getattr(m, "state_stack", None) is None:
+        return m.state
+    from ..parallel.sharded import gather_states_global, merge_states_host
+    if not m._active_nonempty():
+        return None
+    return merge_states_host(
+        gather_states_global(m.state_stack, m.mesh, m.config), m.config,
+        device="cpu")
+
+
 def save_checkpoint(path: str, m: TSDFMap) -> None:
     m._drain_pending()          # materialize deferred rotations first
-    active = m.state            # settles the last insert
+    active = _active_state(m)
     arrays: dict[str, np.ndarray] = {}
     meta: dict = {
         "format_version": FORMAT_VERSION,
@@ -98,12 +114,11 @@ def _pad_to(a: np.ndarray, n: int, fill) -> np.ndarray:
 
 def load_checkpoint(path: str, device="cuda", mesh=None) -> TSDFMap:
     """Restore a map onto ``device`` (the card unless the caller passes
-    ``device="cpu"``).  ``mesh`` (resuming onto a sharded map) is not
-    ported yet."""
+    ``device="cpu"``).  With ``mesh`` (``parallel.make_mesh``) a
+    ``ShardedTSDFMap`` is returned on the mesh's devices, its active state
+    partitioned by the static Morton ranges (``shard_state_host``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "not ported to PyTorch yet (see ROADMAP.md): "
-            "load_checkpoint(mesh=...)")
+        device = "cpu"          # the state is partitioned from the host
     z = np.load(path, allow_pickle=False)
     meta = json.loads(bytes(z["__meta__"]).decode())
     if meta["format_version"] not in (1, FORMAT_VERSION):
@@ -157,7 +172,20 @@ def load_checkpoint(path: str, device="cuda", mesh=None) -> TSDFMap:
             touched_overflow=scalar(counters[4]),
             tile_overflow=scalar(counters[5]))
         m._positions = list(z["active_positions"])
-    return m
+    if mesh is None:
+        return m
+    from ..parallel import sharded
+    from ..parallel.sharded_map import ShardedTSDFMap
+    sm = ShardedTSDFMap(config=config, mesh=mesh)
+    sm.levels = m.levels
+    sm.submaps = m.submaps
+    sm._positions = m._positions
+    if m.state is not None:
+        sm.state_stack = sharded.shard_state_host(m.state, mesh, config)
+        sm._origin = m.state.origin_blocks.numpy()
+        # further inserts route with the ownership the state was cut by
+        sm._bounds = sharded.key_bounds(mesh.n_shards, config)
+    return sm
 
 
 def _set_counters(lv, uniques: int, dupes: int) -> None:

@@ -15,8 +15,9 @@ The normal equations are accumulated in a fixed order: the per-edge blocks
 fill a dense (6E, 6N) Jacobian and ``H = Jᵀ J``, ``b = Jᵀ r`` are one
 product each (N is the submap count, so the matrix is small), where the JAX
 package adds the blocks one edge at a time in a ``lax.scan``.  Float
-``index_add_`` on CUDA would sum in no fixed order.  The JAX package's
-``mesh=`` reduction (a ``psum`` of the per-shard blocks) is not ported yet.
+``index_add_`` on CUDA would sum in no fixed order.  With a ``mesh``
+(``parallel.make_mesh``) the edges are split over its shards and the
+shards' normal equations summed, the JAX package's ``psum``.
 """
 
 from __future__ import annotations
@@ -198,8 +199,9 @@ def _edge_blocks(base_i, base_j, z_inv, w, huber_delta=0.0,
 
 
 def _accumulate_normal_eq(poses, edges, z_inv, weights, n_nodes: int,
-                          huber_delta=0.0, mode: str = "huber"):
-    """Dense H (6N, 6N), b (6N,) and the cost from all edges.
+                          huber_delta=0.0, mode: str = "huber", valid=None):
+    """Dense H (6N, 6N), b (6N,) and the cost from all edges (those where
+    ``valid`` holds, when given).
 
     The edge blocks are vmapped, placed in a dense (6E, 6N) Jacobian and
     reduced by two products, a fixed order on any device.  Dense H is
@@ -207,6 +209,10 @@ def _accumulate_normal_eq(poses, edges, z_inv, weights, n_nodes: int,
     r, ji, jj = vmap(
         lambda pi, pj, zi, w: _edge_blocks(pi, pj, zi, w, huber_delta, mode)
     )(poses[edges[:, 0]], poses[edges[:, 1]], z_inv, weights)
+    if valid is not None:
+        r = torch.where(valid[:, None], r, 0.0)
+        ji = torch.where(valid[:, None, None], ji, 0.0)
+        jj = torch.where(valid[:, None, None], jj, 0.0)
     e = edges.shape[0]
     rows = torch.arange(e, device=poses.device)
     J = torch.zeros((e, 6, n_nodes, 6), dtype=poses.dtype,
@@ -216,6 +222,30 @@ def _accumulate_normal_eq(poses, edges, z_inv, weights, n_nodes: int,
     J = J.reshape(6 * e, 6 * n_nodes)
     r = r.reshape(-1)
     return J.T @ J, J.T @ r, torch.sum(r * r)
+
+
+def _accumulate_sharded(mesh, poses, edges, z_inv, weights, n_nodes: int,
+                        huber_delta, mode: str, device):
+    """:func:`_accumulate_normal_eq` with the edges padded to a multiple
+    of the mesh's shards and split over them, each shard's part on its
+    device, summed over the mesh (``ShardMesh.psum``) onto ``device``."""
+    e = edges.shape[0]
+    k = -(-e // mesh.n_shards)
+    pad = k * mesh.n_shards - e
+    edges = torch.cat([edges, edges.new_zeros((pad, 2))])
+    eye = torch.eye(4, dtype=z_inv.dtype, device=z_inv.device)
+    z_inv = torch.cat([z_inv, eye.expand(pad, 4, 4)])
+    weights = torch.cat([weights, weights.new_zeros(pad)])
+    valid = torch.arange(e + pad, device=edges.device) < e
+    parts = []
+    for i, dev in enumerate(mesh.devices):
+        sl = slice((mesh.first + i) * k, (mesh.first + i + 1) * k)
+        parts.append(_accumulate_normal_eq(
+            poses.to(dev), edges[sl].to(dev), z_inv[sl].to(dev),
+            weights[sl].to(dev), n_nodes, huber_delta, mode,
+            valid[sl].to(dev)))
+    return tuple(mesh.psum([p[j] for p in parts]).to(device)
+                 for j in range(3))
 
 
 def optimize_poses(graph: PoseGraph, init_poses: np.ndarray,
@@ -233,13 +263,10 @@ def optimize_poses(graph: PoseGraph, init_poses: np.ndarray,
     drift that DCS starved of influence, so both models (candidates
     dropped / all kept) are optimized quadratically and the one with the
     lower saturating cost wins; ``stats["gated_edges"]`` counts the edges
-    dropped.  ``mesh`` (a sharded reduction) is not ported yet.  Returns
-    (poses (N, 4, 4) np.float32, stats dict).
+    dropped.  With ``mesh`` (``parallel.make_mesh``) the edges are padded
+    and split over its shards, and the normal equations summed; the solve
+    runs on ``device``.  Returns (poses (N, 4, 4) np.float32, stats dict).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported to PyTorch yet (see ROADMAP.md): "
-            "optimize_poses(mesh=...)")
     dev = torch.device(device)
     n = graph.n_nodes
     f32 = dict(dtype=torch.float32, device=dev)
@@ -251,6 +278,9 @@ def optimize_poses(graph: PoseGraph, init_poses: np.ndarray,
     e = edges.shape[0]
 
     def accumulate(p, w, mode):
+        if mesh is not None:
+            return _accumulate_sharded(mesh, p, edges, z_inv, w, n,
+                                       huber_delta, mode, dev)
         return _accumulate_normal_eq(p, edges, z_inv, w, n, huber_delta,
                                      mode)
 

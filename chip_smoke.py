@@ -82,7 +82,28 @@ runs, failing with a non-zero exit on the first error:
    ``optimize_loop_closures`` with the true loop edge (called twice: the
    first call pays one-time set-up) must correct submap 1 by -drift
    (within 0.01 m) with poses equal to the port's CPU solve (within 1e-4),
-   and the saved mesh's RMSE to the sphere must drop.
+   and the saved mesh's RMSE to the sphere must drop;
+13. the sharded map (``parallel/``) on the one card: ``ShardedTSDFMap`` on
+   ``make_mesh(1)`` bit-equal to ``TSDFMap`` on the sphere with no host
+   read; the N = 1 generic path (scratch pool, routing, K3 merge) with K1,
+   K2 and K3 launched and no row routed, equal to ``TSDFMap``; four shards
+   on the card (``make_mesh(4)``) on the sphere at the default MapConfig
+   (no row deferred, some rows routed, merged keys and weights equal to
+   ``TSDFMap``'s, sd within tests/test_sharding.py's rule; K2, K1 and K3
+   held against their plain versions on the inputs that insert gave them:
+   each shard's point bucket, each shard's scratch merge and each shard's
+   merge of its own and the received halo rows, K3 bit-equal on both pool
+   planes, the received live rows adding up to ``route_sent``; insert ms
+   in turns, and by stage; ``save`` through device MC against
+   ``TSDFMap``'s mesh) and on the phase-8
+   stream (scans/s in turns, two streams bit-equal, no host read but where
+   the stubs' byte bound drains one, keys and weights equal to the
+   single-device stream's, voxel samples under tests/test_sharded_map.py's
+   rule, ``save``); the carved stream (counters equal to ``TSDFMap``'s,
+   none dropped below 0); an N = 4 checkpoint resumed on 2 shards with 2
+   more scans into both; ``optimize_poses(mesh=...)`` against the N = 1
+   solve; and a world-size-1 NCCL group running the generic insert through
+   the collectives, bit-equal to the in-process exchange.
 
 The fused and tile inserts must report ``host_reads`` 0, and the fused
 inserts run once more under ``torch.cuda.set_sync_debug_mode("warn")``:
@@ -96,12 +117,15 @@ just before phase 8's stream, where K2 must launch once per insert and K1,
 K3, K4 and K5 not at all.
 Phases 10-12 reset them just before their own inserts and read them right
 after (K2 on the carved stream and the checkpoint's 2 scans, K1-K3 on the
-loop closure's sphere passes).
+loop closure's sphere passes); phase 13 just before one N = 4 dense insert
+(K1-K3) and the N = 4 stream (K2, K3).
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
 for K4-K5, phase 7 for M1-M3 (and, as ``launches_stream``,
 ``launches_carve``, ``launches_checkpoint`` and ``launches_loop_closure``,
-in the inserts of phases 8, 10, 11 and 12), with its time, its plain
+in the inserts of phases 8, 10, 11 and 12, and as
+``launches_sharded_dense`` and ``launches_sharded_stream`` in phase 13's),
+with its time, its plain
 version's time, the library call's time (or null) and ``bound_ms``: the
 least time the H100 could take for the same work on this run's inputs, the
 larger of the bytes the function must move (each input read once, each
@@ -278,6 +302,23 @@ def sd_err_per_weight(sd_a, sd_b, w):
     return float((torch.abs(sd_a - sd_b) / torch.clamp(w, min=1.0)).max())
 
 
+def hold_k1(k1, fargs, kw, what):
+    """K1's outputs ``k1`` against its plain version on the same inputs:
+    block lists and counters equal, weights equal on the live rows, sd
+    within SD_TOL per unit weight.  Returns (the live-row mask, max |sd
+    difference| on the live rows)."""
+    from chad_tsdf_tpu_torch.ops import fused_integrate, tile_accum
+    p1 = fused_integrate.fused_tile_partials_plain(*fargs, **kw)
+    require(torch.equal(k1[0], p1[0]), f"K1 block lists differ ({what})")
+    require(torch.equal(k1[3], p1[3]), f"K1 counters differ ({what})")
+    live = tile_accum.live_rows(p1[0])
+    require(torch.equal(k1[2][live], p1[2][live]),
+            f"K1 weights differ ({what})")
+    err = sd_err_per_weight(k1[1][live], p1[1][live], p1[2][live])
+    require(err < SD_TOL, f"K1 sd error {err} ({what})")
+    return live, float((k1[1][live] - p1[1][live]).abs().max())
+
+
 def check_kernels(cfg, results):
     """Phase 2: K1-K4 against their plain versions on the sphere's inputs
     (K2 also on the dense-voxel cloud and small edge-case clouds)."""
@@ -315,18 +356,12 @@ def check_kernels(cfg, results):
               trunc=cfg.sdf_trunc, extent=cfg.blocks_per_axis * 8)
     fargs = (px, py, pz, nx, ny, nz, sb, pos, origin_voxel)
     k1 = fused_integrate.fused_tile_partials(*fargs, **kw)
-    p1 = fused_integrate.fused_tile_partials_plain(*fargs, **kw)
-    require(torch.equal(k1[0], p1[0]), "K1 block lists differ")
-    require(torch.equal(k1[3], p1[3]), "K1 counters differ")
-    live1 = tile_accum.live_rows(p1[0])
+    live1, err_abs = hold_k1(k1, fargs, kw, "sphere")
     n_live = int(live1.sum())
-    require(torch.equal(k1[2][live1], p1[2][live1]), "K1 weights differ")
-    err1 = sd_err_per_weight(k1[1][live1], p1[1][live1], p1[2][live1])
-    require(err1 < SD_TOL, f"K1 sd error {err1}")
     tot = k1[3].sum(0).tolist()
     tiles = N_DENSE // 1024
     results["fused_tile_partials"] = {
-        "max_abs_err": float((k1[1][live1] - p1[1][live1]).abs().max()),
+        "max_abs_err": err_abs,
         "ms": cuda_ms(lambda: fused_integrate.fused_tile_partials(
             *fargs, **kw)),
         "plain_ms": cuda_ms(lambda: fused_integrate.fused_tile_partials_plain(
@@ -339,7 +374,6 @@ def check_kernels(cfg, results):
     log(f"K1 fused_tile_partials: [n_valid, n_not_covered, n_samp_ovf] = "
         f"{tot}, rows {k1[1].shape[0]}, live rows {n_live} "
         f"({n_live / tiles:.2f} per tile), {results['fused_tile_partials']}")
-    del p1
 
     # ---- K4, on the sample grids K1 walked internally ----
     grids = dda.local_sample_grids(px, py, pz, nx, ny, nz, sb != 2**31 - 1,
@@ -1127,6 +1161,594 @@ def run_loop_closure(tmp):
     return launches
 
 
+SHARDS = 4          # phase 13's mesh: four shards on the one card
+
+
+def merged_vs_single(stack, state, cfg, what):
+    """A sharded map's states merged exactly (``merge_states_host``)
+    against a single-device state: directory keys and weights equal.
+    Returns the per-voxel mean signed distance differences (median,
+    max)."""
+    from chad_tsdf_tpu_torch.parallel import sharded
+    merged = sharded.merge_states_host(stack, cfg, device="cuda")
+    require(torch.equal(merged.dir_keys, state.dir_keys),
+            f"{what}: dir_keys differ")
+    nb = int(state.n_blocks)
+    require(int(merged.n_blocks) == nb, f"{what}: n_blocks differ")
+    sa, sb = merged.dir_slots[:nb].long(), state.dir_slots[:nb].long()
+    wa, wb = merged.pool_w[sa], state.pool_w[sb]
+    require(torch.equal(wa, wb), f"{what}: weights differ")
+    occ = wb > 0
+    d = (merged.pool_sd[sa][occ] / wa[occ] -
+         state.pool_sd[sb][occ] / wb[occ]).abs()
+    return float(d.median()), float(d.max())
+
+
+def samples_close(a, b, what):
+    """tests/test_sharded_map.py's rule on two maps' voxel samples (both
+    drained): equal codes, over 98% of the signed distances within two
+    8-bit codec steps.  Returns (that share, the number of voxels)."""
+    ca, sa = a.voxel_samples()
+    cb, sb = b.voxel_samples()
+    require(np.array_equal(ca, cb),
+            f"{what}: voxel codes differ ({ca.shape[0]} vs {cb.shape[0]})")
+    share = float((np.abs(sa - sb) <= 2 * a.config.sdf_trunc / 127).mean())
+    require(share > 0.98, f"{what}: {share} of the voxels within 2 steps")
+    return share, int(ca.shape[0])
+
+
+def sharded_stream(scans, cfg, mesh):
+    """``kitti_stream.timed_stream`` for a ``ShardedTSDFMap``: scan 0,
+    synchronise, scans 1.. timed to a second synchronisation.  Returns
+    (map, seconds, per-insert metrics, host reads of each timed insert,
+    the submaps drained in each timed insert)."""
+    from chad_tsdf_tpu_torch.parallel import ShardedTSDFMap
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+    m = ShardedTSDFMap(config=cfg, mesh=mesh)
+    m.insert(*scans[0])
+    torch.cuda.synchronize()
+    metrics, reads, drained = [], [], []
+    t0 = time.perf_counter()
+    for pts, pos in scans[1:]:
+        n_sub = len(m.submaps)
+        with ks.count_host_reads() as r:
+            metrics.append(m.insert(pts, pos))
+        reads.append(r)
+        drained.append(len(m.submaps) - n_sub)
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0, metrics, reads, drained
+
+
+def sharded_states(m):
+    """Every state a sharded map holds on the device: active, then each
+    pending stub's."""
+    return [m.state_stack] + [p.state_stack for p in m._pending]
+
+
+def check_reads(reads, drained, what):
+    """No insert reads the host, but one that had to drain a rotated-out
+    stub beyond the byte bound (``core/map.py`` ``_MAX_PENDING_BYTES``;
+    a 4-shard stub at this pool size pins 1 GiB on the one card)."""
+    for i, (r, d) in enumerate(zip(reads, drained)):
+        require(r == {} or d > 0,
+                f"{what}: insert {i + 1} read the host ({r}) and drained "
+                "nothing")
+    return sum(1 for r in reads if r), sum(drained)
+
+
+class KernelCalls:
+    """While entered, records every call of the K1, K2 and K3 wrappers
+    (the insert reaches them through their modules' attributes) with its
+    arguments and result; K3 adds into its pools in place, so its pools
+    are copied just before and just after the launch.  The wrappers still
+    launch once per call, so the launch counts are the main path's."""
+
+    def __init__(self):
+        from chad_tsdf_tpu_torch.ops import (fused_integrate, normals_cuda,
+                                             tile_accum)
+        self.targets = {"estimate_normals": (normals_cuda,
+                                             "estimate_normals"),
+                        "fused_tile_partials": (fused_integrate,
+                                                "fused_tile_partials"),
+                        "merge_partials": (tile_accum, "merge_partials")}
+        self.calls = {k: [] for k in self.targets}
+        self.saved = {}
+
+    def __enter__(self):
+        for name, (mod, attr) in self.targets.items():
+            fn = getattr(mod, attr)
+            self.saved[name] = fn
+
+            def run(*a, _name=name, _fn=fn, **kw):
+                if _name == "merge_partials":
+                    before = (a[0].clone(), a[1].clone())
+                    out = _fn(*a, **kw)
+                    self.calls[_name].append(
+                        (a, kw, before, (a[0].clone(), a[1].clone())))
+                    return out
+                out = _fn(*a, **kw)
+                self.calls[_name].append((a, kw, out))
+                return out
+            setattr(mod, attr, run)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.saved[name])
+
+
+def hold_k3_call(call, what):
+    """K3 on one main-path call's inputs against its plain version, run
+    under torch's deterministic algorithms so that its ``index_add_`` sums
+    each pool row's partial rows in the plan's order, as K3 does: both pool
+    planes must be bit-equal to the main path's output, and a second
+    launch on a copy of the input pools must equal it too.  Returns (max
+    |difference| over both planes, live partial rows)."""
+    from chad_tsdf_tpu_torch.ops import tile_accum
+    args, _, before, after = call
+    plan, psd, pw = args[2:8], args[8], args[9]
+    plain = (before[0].clone(), before[1].clone())
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        tile_accum.merge_partials_plain(*plain, *plan, psd, pw)
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    again = (before[0].clone(), before[1].clone())
+    tile_accum.merge_partials(*again, *plan, psd, pw)
+    err = max(float((a - b).abs().max()) for a, b in zip(after, plain))
+    for i, plane in enumerate(("sd", "w")):
+        require(torch.equal(after[i], plain[i]),
+                f"K3 {plane} plane differs from its plain version ({what}): "
+                f"max |diff| {err}, sd err/weight "
+                f"{sd_err_per_weight(after[0], plain[0], plain[1]):.3e}")
+        require(torch.equal(after[i], again[i]),
+                f"K3 {plane} plane not bit-equal across launches ({what})")
+    return err, int(args[4].sum())
+
+
+def hold_sharded_kernels(calls, cfg, scratch_rows, route_sent):
+    """Phase 13: K2, K1 and K3 held against their plain versions on the
+    inputs the N = 4 dense insert gave them (``KernelCalls``): each shard's
+    point bucket (K2, K1), each shard's merge into its scratch pool and
+    each shard's merge of its own and the received halo rows into its
+    persistent pool (K3).  The received rows are the rows of the merge's
+    input beyond the ``scratch_rows`` local ones; the live ones must add
+    up to ``route_sent``.  Returns a summary for the log."""
+    from chad_tsdf_tpu_torch.ops import normals, normals_cuda
+    k2, k1, k3 = (calls.calls[k] for k in ("estimate_normals",
+                                           "fused_tile_partials",
+                                           "merge_partials"))
+    require(len(k2) == len(k1) == SHARDS and len(k3) == 2 * SHARDS,
+            f"N = 4 dense insert: {len(k2)} K2, {len(k1)} K1, {len(k3)} K3 "
+            "calls")
+    out = {"K2": [], "K1": [], "K3 scratch": [], "K3 halo": []}
+    for i, (args, _, nk) in enumerate(k2):
+        px, py, pz, sb, so, pos, min_pts, depth = args
+        nk = torch.stack(nk)
+        npl = torch.stack(normals.estimate_normals_soa(
+            px, py, pz, sb, so, sb != 2**31 - 1, pos, min_pts, depth))
+        # K2's rule of phase 2 on the bucket's points; its padding (zero
+        # points at the scanner, whose normals are 0) exactly equal
+        valid = sb != 2**31 - 1
+        min_dot = float((nk * npl).sum(0)[valid].min())
+        require(min_dot > 1.0 - 1e-3, f"K2 min dot {min_dot} (N = 4 shard "
+                                      f"{i} bucket)")
+        require(torch.equal(nk[:, ~valid], npl[:, ~valid]),
+                f"K2 padding normals differ (N = 4 shard {i} bucket)")
+        require(torch.equal(nk, torch.stack(
+            normals_cuda.estimate_normals(*args))),
+                f"K2 shard {i}: the main path's normals differ from a "
+                "second launch")
+        out["K2"].append({"points": int(px.shape[0]),
+                          "valid": int(valid.sum()), "min_dot": min_dot,
+                          "max_abs_err": float((nk - npl).abs().max())})
+    for i, (args, kw, k1_out) in enumerate(k1):
+        live, err = hold_k1(k1_out, args, kw, f"N = 4 shard {i} bucket")
+        out["K1"].append({"points": int(args[0].shape[0]),
+                          "rows": int(k1_out[0].shape[0]),
+                          "live_rows": int(live.sum()), "max_abs_err": err})
+    received = 0
+    for i, call in enumerate(k3):
+        kind = "K3 scratch" if i < SHARDS else "K3 halo"
+        err, n_live = hold_k3_call(call, f"{kind} merge of shard "
+                                         f"{i % SHARDS}")
+        args = call[0]
+        rec = {"pool_rows": int(args[0].shape[0]),
+               "input_rows": int(args[8].shape[0]), "live_rows": n_live,
+               "max_abs_err": err}
+        if kind == "K3 halo":
+            require(args[8].shape[0] > scratch_rows,
+                    f"K3 halo merge of shard {i % SHARDS}: "
+                    f"{args[8].shape[0]} input rows")
+            src_live = args[7][:n_live].to(torch.int64)
+            rec["received_live_rows"] = int((src_live >= scratch_rows).sum())
+            received += rec["received_live_rows"]
+        out[kind].append(rec)
+    require(received == route_sent,
+            f"K3 halo merges took {received} received rows, route_sent "
+            f"{route_sent}")
+    return out
+
+
+def stage_times(m, pts, pos, reps=3):
+    """``reps`` inserts of ``pts`` into the sharded map ``m``, each timed
+    whole and by stage with ``time.perf_counter``, the card synchronised
+    around every stage (which takes away their overlap): the density
+    dispatch, the host split (``owner_split`` + ``rebalance_chunks``), the
+    fresh scratch pools, the shards' scratch inserts (K2, K1 and the
+    scratch K3 merge), the routing of the scratch rows, the halo exchange,
+    the K3 merges of local and received rows, the metrics' psum and the
+    settling of the fused fallbacks; ``other`` is the rest of the insert
+    (the padded copy, the uploads, the row gathers).  Returns the median
+    ms of each."""
+    from chad_tsdf_tpu_torch import TSDFMap
+    from chad_tsdf_tpu_torch.core import integrate
+    from chad_tsdf_tpu_torch.parallel import sharded
+    stages = {"dispatch": ((TSDFMap, "_dispatch_config"),),
+              "split": ((sharded, "owner_split"),
+                        (sharded, "rebalance_chunks")),
+              "scratch_pools": ((sharded, "create_state"),),
+              "scratch_inserts": ((integrate, "insert_step_deferred"),),
+              "route": ((sharded, "_route_block_rows"),),
+              "exchange": ((sharded.ShardMesh, "exchange"),),
+              "halo_merge": ((integrate, "update_pool_tiled"),),
+              "psum": ((sharded, "_psum_metrics"),),
+              "settle": ((sharded, "settle_stack"),)}
+    acc = dict.fromkeys(stages, 0.0)
+    depth = [0]
+    saved = []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            if depth[0]:          # a stage inside a timed stage
+                return fn(*a, **kw)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                acc[name] += (time.perf_counter() - t0) * 1e3
+                depth[0] -= 1
+        return run
+
+    for name, targets in stages.items():
+        for owner, attr in targets:
+            fn = getattr(owner, attr)
+            saved.append((owner, attr, fn))
+            setattr(owner, attr, timed(name, fn))
+    runs = []
+    try:
+        for _ in range(reps):
+            for k in acc:
+                acc[k] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.insert(pts, pos)
+            m._settle()
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            runs.append(dict(acc, other=total - sum(acc.values()),
+                             total=total))
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    return {k: round(statistics.median(r[k] for r in runs), 3)
+            for k in runs[0]}
+
+
+def run_sharded(tmp):
+    """Phase 13: the sharded map (``parallel/``) on the one card; returns
+    the launch counts of one dense N = 4 insert and of the N = 4 stream's
+    12 inserts."""
+    from chad_tsdf_tpu_torch import MapConfig, TSDFMap, kernels
+    from chad_tsdf_tpu_torch.io import load_checkpoint, save_checkpoint
+    from chad_tsdf_tpu_torch.mesh import read_ply
+    from chad_tsdf_tpu_torch.parallel import (ShardedTSDFMap, distributed,
+                                              make_mesh, sharded)
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+    from chad_tsdf_tpu_torch.slam import posegraph as pg
+
+    t_phase = time.perf_counter()
+    cfg = MapConfig()
+    dense = sphere(N_DENSE, 5.0, 420)
+    origin0 = np.zeros(3, np.float32)
+    k123 = ("fused_tile_partials", "estimate_normals", "merge_partials")
+
+    # 1. N = 1: the single-device insert itself
+    ref = TSDFMap(0.05, 0.1, device="cuda")
+    ref.insert(dense, origin0)
+    s1 = ShardedTSDFMap(0.05, 0.1, mesh=make_mesh(1))
+    with ks.count_host_reads() as reads:
+        met = s1.insert(dense, origin0)
+    for f in ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
+              "tile_overflow"):
+        require(torch.equal(getattr(s1.state_stack[0], f),
+                            getattr(ref.state, f)),
+                f"N = 1: {f} not bit-equal to TSDFMap")
+    require(reads == {} and met["host_reads"] == 0,
+            f"the N = 1 insert read the host: {reads}")
+    log(f"phase 13 N = 1 (2^20-point r = 5 m sphere): pools, directory "
+        f"and slot order bit-equal to TSDFMap; host reads {reads}")
+
+    # 2. N = 1 through the generic path: scratch, routing, K3 merge
+    mesh1 = make_mesh(1)
+    origin = ref.state.origin_blocks.cpu().numpy()
+
+    def generic(mesh):
+        step, _ = sharded.make_sharded_insert(cfg, mesh, force_generic=True)
+        stack = sharded.create_sharded_state(cfg, mesh, origin)
+        stack, m, tails = step(stack, dense, np.int32([N_DENSE]), origin0,
+                               sharded.key_bounds(1, cfg))
+        stack, _ = sharded.settle_stack(stack, tails, mesh)
+        return stack, {k: int(v) for k, v in m.items()}
+
+    kernels.reset_launches()
+    g_stack, g_met = generic(mesh1)
+    g_launches = dict(kernels.LAUNCHES)
+    g_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generic(mesh1)
+        torch.cuda.synchronize()
+        g_ms.append((time.perf_counter() - t0) * 1e3)
+    for k in k123:
+        require(g_launches[k] > 0, f"{k} launched 0 times in the N = 1 "
+                                   "generic insert")
+    require(g_met["route_sent"] == 0 and g_met["route_overflow"] == 0,
+            f"N = 1 generic routed rows: {g_met}")
+    g_err = same_state(g_stack[0], ref.state, "N = 1 generic vs TSDFMap")
+    log(f"phase 13 N = 1 generic (force_generic): dir_keys and weights "
+        f"equal to TSDFMap's, sd err/weight {g_err:.3e}; route_sent "
+        f"{g_met['route_sent']}; one insert into a fresh pool "
+        f"{[round(x, 3) for x in g_ms]} ms; launches {g_launches}")
+
+    # 3. N = 4 on the one card, the dense sphere at full width
+    mesh4 = make_mesh(SHARDS)
+    require(mesh4.devices == (torch.device("cuda", 0),) * SHARDS,
+            f"mesh devices {mesh4.devices}")
+    s4 = ShardedTSDFMap(0.05, 0.1, mesh=mesh4)
+    kernels.reset_launches()
+    with KernelCalls() as calls, ks.count_host_reads() as reads:
+        met4 = s4.insert(dense, origin0)
+    torch.cuda.synchronize()
+    dense_launches = dict(kernels.LAUNCHES)
+    for k in k123:
+        require(dense_launches[k] > 0, f"{k} launched 0 times in the N = 4 "
+                                       "dense insert")
+    require(reads == {}, f"the N = 4 dense insert read the host: {reads}")
+    met4 = {k: met4[k] for k in ("route_overflow", "route_sent",
+                                 "n_valid_samples", "n_blocks",
+                                 "host_reads")}
+    require(met4["route_overflow"] == 0 and met4["route_sent"] > 0,
+            f"N = 4 dense: {met4}")
+    held = hold_sharded_kernels(calls, cfg,
+                                sharded.scratch_config(cfg).block_capacity,
+                                met4["route_sent"])
+    del calls
+    log(f"phase 13 N = 4 dense insert, its kernels against their plain "
+        f"versions on its own inputs (K2 min dot > 1 - 1e-3; K1 as phase 2; "
+        f"K3 both planes bit-equal to the deterministic plain version): "
+        f"{json.dumps(held)}")
+    med, mx = merged_vs_single(s4.state_stack, ref.state, cfg,
+                               "N = 4 dense")
+    require(med < 2e-3 and mx < 5e-2,
+            f"N = 4 dense sd differs from TSDFMap: median {med}, max {mx}")
+    ins = {"single": [], "N = 1": [], "N = 4": []}
+    for name in ("single", "N = 1", "N = 4", "N = 4", "N = 1", "single"):
+        m = {"single": ref, "N = 1": s1, "N = 4": s4}[name]
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.insert(dense, origin0)
+            torch.cuda.synchronize()
+            ins[name].append((time.perf_counter() - t0) * 1e3)
+    save = {}
+    for name, m in (("single", ref), ("sharded", s4)):
+        path = os.path.join(tmp, f"{name}.ply")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.save(path)
+        save[name] = ((time.perf_counter() - t0) * 1e3, read_ply(path))
+    v_s, v_r = save["sharded"][1].vertices, save["single"][1].vertices
+    rmse = float(np.sqrt(np.mean(
+        (np.linalg.norm(v_s.astype(np.float64), axis=1) - 5.0) ** 2)))
+    require(abs(len(v_s) - len(v_r)) <= 0.02 * len(v_r) and
+            rmse < 0.1 * cfg.sdf_res,
+            f"N = 4 mesh: {len(v_s)} vs {len(v_r)} vertices, RMSE {rmse}")
+    log(f"phase 13 N = 4 dense insert (one card, {SHARDS} shards): {met4}; "
+        f"merged keys and weights equal to TSDFMap's, per-voxel sd diff "
+        f"median {med:.3e} max {mx:.3e}; insert ms in turns (single, "
+        f"N = 1, N = 4, N = 4, N = 1, single; 3 each): "
+        f"{ {k: [round(x, 3) for x in v] for k, v in ins.items()} } "
+        f"(medians { {k: round(statistics.median(v), 3) for k, v in ins.items()} }); save "
+        f"{save['sharded'][0]:.1f} ms ({len(v_s)} vertices, RMSE to r = 5 "
+        f"{rmse:.6f} m) vs TSDFMap {save['single'][0]:.1f} ms ({len(v_r)} "
+        f"vertices); launches in one insert {dense_launches}")
+    stages = stage_times(s4, dense, origin0)
+    log(f"phase 13 N = 4 dense insert by stage (ms, median of 3, card "
+        f"synchronised around each stage): {stages}")
+    del s1, s4, ref, g_stack
+    torch.cuda.empty_cache()
+
+    # 4. N = 4, the KITTI-shaped stream (sharded_kitti_bench.py's config)
+    scans = ks.make_scans()
+    scfg = ks.stream_config()
+    rotations = ks.expected_rotations(scans, scfg)
+    rates = {"single": [], "N = 1": [], "sharded": []}
+    maps, stream_launches, sh_metrics = {}, None, None
+    for rnd, name in enumerate(("single", "N = 1", "sharded", "single",
+                                "N = 1", "sharded", "sharded", "N = 1",
+                                "single")):
+        if name == "N = 1":
+            m, dt, metrics, reads, drained = sharded_stream(scans, scfg,
+                                                            mesh1)
+            check_reads(reads, drained, "N = 1 stream")
+        elif name == "single":
+            m, dt, _, metrics, reads = ks.timed_stream(scans, scfg, "cuda")
+            require(reads == {}, f"the single-device stream read {reads}")
+        else:
+            kernels.reset_launches()
+            m, dt, metrics, reads, drained = sharded_stream(scans, scfg,
+                                                            mesh4)
+            stream_launches, sh_metrics = dict(kernels.LAUNCHES), metrics
+            n_read, n_drained = check_reads(reads, drained, "N = 4 stream")
+            require({int(x["host_reads"]) for x in metrics} == {0} and
+                    max(int(x["route_overflow"]) for x in metrics) == 0,
+                    "N = 4 stream metrics")
+            for k in ("estimate_normals", "merge_partials"):
+                require(stream_launches[k] > 0,
+                        f"{k} launched 0 times on the N = 4 stream")
+            require(m.n_submaps == rotations,
+                    f"N = 4 stream: {m.n_submaps} submaps")
+            if name in maps:
+                for a, b in zip(sharded_states(m), sharded_states(maps[name])):
+                    for x, y in zip(a, b):
+                        for f in ("dir_keys", "dir_slots", "n_blocks",
+                                  "pool_sd", "pool_w"):
+                            require(torch.equal(getattr(x, f),
+                                                getattr(y, f)),
+                                    f"two N = 4 streams: {f} differs")
+                require(m.levels.stats() == maps[name].levels.stats(),
+                        "two N = 4 streams: drained DAGs differ")
+        if rnd >= 3:
+            rates[name].append((len(scans) - 1) / dt)
+        maps[name] = m
+    sh, single = maps["sharded"], maps["single"]
+    require(len(sh._pending) + len(sh.submaps) ==
+            len(single._pending) == rotations, "rotations differ")
+    pairs = [(sh.state_stack, single.state)] + [
+        (p.state_stack, q.raw_state) for p, q in
+        zip(sh._pending, single._pending[len(sh.submaps):])]
+    for stack, state in pairs:
+        merged_vs_single(stack, state, scfg, "N = 4 stream")
+    share, n_vox = samples_close(sh, single, "N = 4 stream")
+    path = os.path.join(tmp, "stream.ply")
+    t0 = time.perf_counter()
+    sh.save(path)
+    st_save_ms = (time.perf_counter() - t0) * 1e3
+    require(read_ply(path).n_vertices > 0, "N = 4 stream: empty mesh")
+    log(f"phase 13 N = 4 stream ({len(scans)} scans, {rotations} "
+        f"rotations): scans/s medians "
+        f"{ {k: round(statistics.median(v), 2) for k, v in rates.items()} } "
+        f"(turns: { {k: [round(r, 2) for r in v] for k, v in rates.items()} }"
+        f"); route_sent per scan "
+        f"{[int(x['route_sent']) for x in sh_metrics]}; two streams "
+        f"bit-equal; "
+        f"inserts reading the host {n_read} (each drained a stub: "
+        f"{n_drained} drained); merged keys and weights equal to the "
+        f"single-device stream's (active and rotated-out); {share:.4f} of "
+        f"{n_vox} voxels within 2 steps; save {st_save_ms:.1f} ms; "
+        f"launches in {len(scans)} inserts {stream_launches}")
+    del maps, sh, single, m
+    torch.cuda.empty_cache()
+
+    # 5a. carving on the N = 4 stream
+    ccfg = ks.stream_config(**CARVE)
+    c_ref, _, _, c_single, _ = ks.timed_stream(scans, ccfg, "cuda")
+    cm, c_dt, c_met, c_reads, c_drained = sharded_stream(scans, ccfg, mesh4)
+    check_reads(c_reads, c_drained, "carved N = 4 stream")
+    dropped = [int(x["n_carve_dropped"]) for x in c_met]
+    hits = [int(x["n_carve_samples"]) for x in c_met]
+    require(min(dropped) >= 0 and min(hits) > 0,
+            f"carve counters {hits} {dropped}")
+    require(hits == [int(x["n_carve_samples"]) for x in c_single],
+            "carved N = 4 stream: n_carve_samples differ from TSDFMap's")
+    merged_vs_single(cm.state_stack, c_ref.state, ccfg, "carved N = 4")
+    c_share, _ = samples_close(cm, c_ref, "carved N = 4 stream")
+    log(f"phase 13 carved N = 4 stream ({json.dumps(CARVE)}): "
+        f"{(len(scans) - 1) / c_dt:.2f} scans/s; n_carve_samples per scan "
+        f"{hits} (equal to TSDFMap's), n_carve_dropped {dropped}; merged "
+        f"keys and weights equal to TSDFMap's; {c_share:.4f} within 2 steps")
+    del cm, c_ref, c_single
+    torch.cuda.empty_cache()
+
+    # 5b. an N = 4 checkpoint resumed on 2 shards; 2 more scans into both
+    more = ks.make_scans(14)[12:]
+    a = ShardedTSDFMap(config=scfg, mesh=mesh4)
+    for pts, pos in scans:
+        a.insert(pts, pos)
+    ck = os.path.join(tmp, "sharded.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(ck, a)
+    ck_save = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    b = load_checkpoint(ck, mesh=make_mesh(2))
+    torch.cuda.synchronize()
+    ck_load = (time.perf_counter() - t0) * 1e3
+    require(b.n_shards == 2 and b.state_stack[0].device.type == "cuda",
+            "checkpoint: not resumed on 2 shards on the card")
+    for pts, pos in more:
+        a.insert(pts, pos)
+        b.insert(pts, pos)
+    ck_share, ck_vox = samples_close(a, b, "N = 4 checkpoint on 2 shards")
+    require(a.stats()["n_submaps"] == b.stats()["n_submaps"],
+            "checkpoint: submaps differ")
+    log(f"phase 13 checkpoint: N = 4 stream map saved in {ck_save:.1f} ms "
+        f"({os.path.getsize(ck) / 1e6:.2f} MB), loaded on 2 shards in "
+        f"{ck_load:.1f} ms; after 2 more scans into both {ck_vox} voxel "
+        f"codes equal, {ck_share:.4f} within 2 steps")
+    del a, b
+    torch.cuda.empty_cache()
+
+    # 5c. the pose graph's normal equations summed over the mesh
+    gt = []
+    for i in range(16):
+        ang = 2 * np.pi * i / 16
+        t = np.eye(4)
+        t[:2, :2] = [[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]]
+        t[:2, 3] = [10 * np.cos(ang), 10 * np.sin(ang)]
+        gt.append(t)
+    gt = np.asarray(gt)
+    graph = pg.add_edge(pg.make_odometry_edges(gt, noise=0.02, seed=1), 15,
+                        0, np.linalg.inv(gt[-1]) @ gt[0], weight=10.0)
+    init = [gt[0]]
+    for k in range(15):
+        init.append(init[-1] @ graph.measurements[k].astype(np.float64))
+    init = np.asarray(init, np.float32)
+    p1, st1 = pg.optimize_poses(graph, init, iterations=8, device="cuda")
+    p4, st4 = pg.optimize_poses(graph, init, iterations=8, mesh=mesh4,
+                                device="cuda")
+    pg_err = float(np.abs(p4 - p1).max())
+    require(np.allclose(p4, p1, rtol=1e-3, atol=1e-4) and
+            st1["gated_edges"] == st4["gated_edges"],
+            f"mesh solve vs single: {pg_err}, {st1} vs {st4}")
+    log(f"phase 13 pose graph (16 nodes, 17 edges, 8 iterations): "
+        f"optimize_poses(mesh=make_mesh({SHARDS})) vs N = 1, max |dpose| "
+        f"{pg_err:.2e}; {st4}")
+
+    # 6. a world-size-1 NCCL group: the N = 1 generic insert through the
+    # collective path, equal to the in-process exchange's
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    distributed.initialize(f"tcp://localhost:{port}", 1, 0, device="cuda",
+                           timeout_s=120)
+    try:
+        mesh_c = make_mesh(1)
+        require(mesh_c.group is not None and dist.get_backend() == "nccl",
+                "no NCCL group")
+        n_stack, n_met = generic(mesh_c)
+        ref_stack, _ = generic(mesh1)
+        for f in ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w"):
+            require(torch.equal(getattr(n_stack[0], f),
+                                getattr(ref_stack[0], f)),
+                    f"NCCL generic insert: {f} differs")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 13 NCCL (world size 1, backend nccl): the N = 1 generic "
+        f"insert through all_to_all_single / all_reduce / all_gather "
+        f"equals the in-process exchange bit for bit; {n_met}")
+    log(f"phase 13 time: {time.perf_counter() - t_phase:.1f} s")
+    return dense_launches, stream_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -1354,6 +1976,11 @@ def main() -> int:
         loop_launches = run_loop_closure(tmp)
     torch.cuda.empty_cache()
 
+    # ---- phase 13: the sharded map on the one card ----
+    with tempfile.TemporaryDirectory() as tmp:
+        shard_dense, shard_stream = run_sharded(tmp)
+    torch.cuda.empty_cache()
+
     # ---- result ----
     launches = dict(dense_launches,
                     tile_partials=sparse_launches["tile_partials"],
@@ -1376,7 +2003,9 @@ def main() -> int:
                     "launches_stream": stream_launches[name],
                     "launches_carve": carve_launches[name],
                     "launches_checkpoint": ckpt_launches[name],
-                    "launches_loop_closure": loop_launches[name]})
+                    "launches_loop_closure": loop_launches[name],
+                    "launches_sharded_dense": shard_dense[name],
+                    "launches_sharded_stream": shard_stream[name]})
     log(f"phase 2 details: {json.dumps(results)}")
     print(json.dumps({"kernels": out}))
     print(smi)

@@ -6,7 +6,12 @@ XLA's contracted multiply-adds cannot move a sample), erosion only, the
 scan's own band spared, packed ingest equal to float ingest,
 determinism, a stale wall eroded from the mesh, integer counters, and
 the carve inside ``TSDFMap.insert`` under the ``xla``, ``seg``,
-``pallas`` and ``fused`` backends."""
+``pallas`` and ``fused`` backends; and the sharded carve
+(``parallel/sharded.py`` ``make_sharded_carve``): one shard equal to the
+single-device map bit for bit, a stale wall eroded on 8 shards, and a block
+held by its owner and a shard that deferred it, which the JAX package
+carves twice and the port once, as the single-device carve of the merged
+map does."""
 
 import dataclasses
 
@@ -20,12 +25,14 @@ from chad_tsdf_tpu import TSDFMap as JaxTSDFMap
 from chad_tsdf_tpu.config import MapConfig as JaxMapConfig
 from chad_tsdf_tpu.core import carve as j_carve
 from chad_tsdf_tpu.core import state as j_state
+from chad_tsdf_tpu.parallel import sharded as j_sh
 from chad_tsdf_tpu_torch import MapConfig, TSDFMap
 from chad_tsdf_tpu_torch.core import carve, integrate
 from chad_tsdf_tpu_torch.core.state import (INT32_MAX, create_state,
                                             origin_blocks_for_position,
                                             state_from_numpy, state_to_numpy)
 from chad_tsdf_tpu_torch.ops import morton
+from chad_tsdf_tpu_torch.parallel import ShardedTSDFMap, make_mesh, sharded
 
 CFG = MapConfig(max_points=4096, block_capacity=4096, touched_capacity=1024,
                 block_bits=7, accumulate_impl="xla", normals_impl="xla",
@@ -363,3 +370,90 @@ def test_carve_map_matches_jax_map():
     err = np.abs(ts.pool_sd.numpy()[st] - np.asarray(js.pool_sd)[sj]) / \
         np.maximum(wj, 1)
     assert err.max() < 1e-4
+
+
+def test_sharded_carve_n1_matches_single_device_exactly():
+    """At one shard the sharded carve runs the single-device carve on the
+    same scan: pools bit-equal to TSDFMap with carving, same counters."""
+    wall = _wall(2.5, n=600, seed=5)
+    cfg = dataclasses.replace(CFG, max_points=1024)
+    smap = ShardedTSDFMap(config=cfg, mesh=make_mesh(1, device="cpu"))
+    ref = TSDFMap(config=cfg, device="cpu")
+    for beg in range(0, len(wall), 1024):
+        sm_met = smap.insert(wall[beg:beg + 1024], POS)
+        ref_met = ref.insert(wall[beg:beg + 1024], POS)
+    st = smap.state_stack[0]
+    assert torch.equal(st.pool_sd, ref.state.pool_sd)
+    assert torch.equal(st.pool_w, ref.state.pool_w)
+    for k in ("n_carve_samples", "n_carve_dropped", "n_carved_voxels"):
+        assert sm_met[k] == ref_met[k], k
+
+
+def test_sharded_carve_erodes_stale_wall():
+    """On 8 shards a stale wall is eroded as on one device: each sample
+    is applied by the one shard responsible for its block."""
+    cfg = dataclasses.replace(CFG, carve_steps=96, carve_stride=1.0,
+                              max_points=1024)
+    m = ShardedTSDFMap(config=cfg, mesh=make_mesh(8, device="cpu"))
+    m.insert(_wall(2.0, n=800, seed=1), POS)
+    assert np.sum(np.abs(m.extract_mesh().vertices[:, 0] - 2.0) < 0.15) > 0
+    for i in range(16):
+        met = m.insert(_wall(4.0, n=800, half=1.2, seed=10 + i), POS)
+    assert met["n_carve_samples"] > 0 and met["n_carve_dropped"] >= 0
+    v = m.extract_mesh().vertices
+    assert np.sum(np.abs(v[:, 0] - 2.0) < 0.15) == 0
+    assert np.sum(np.abs(v[:, 0] - 4.0) < 0.15) > 0
+
+
+def test_sharded_carve_applies_deferred_rows_once():
+    """A block held by its owner AND by a shard that deferred it (a tiny
+    halo capacity): the JAX package's sharded carve applies its evidence
+    on both, so its hit count exceeds the single-device carve's; the
+    port's applies it once.  Against the single-device carve of the
+    merged state the port's merged weights are exact, its sd within
+    float reassociation, its counters equal and its dropped count >= 0."""
+    cfg = MapConfig(max_points=512, block_capacity=4096,
+                    touched_capacity=2048, accumulate_impl="xla")
+    ccfg = dataclasses.replace(cfg, carve_steps=64, carve_stride=1.0,
+                               carve_subsample=1, carve_weight=1.0)
+    rng = np.random.default_rng(9)
+    pts = (np.float32([1.5, 1.5, 1.5]) +
+           rng.uniform(-0.5, 0.5, size=(8 * 512, 3))).astype(np.float32)
+    mesh = make_mesh(8, device="cpu")
+    origin = origin_blocks_for_position(POS, cfg)
+    padded = np.zeros((8 * 512, 3), np.float32)
+    n_per = np.zeros(8, np.int32)
+    for i, c in enumerate(np.array_split(pts, 8)):
+        padded[i * 512:i * 512 + len(c)] = c
+        n_per[i] = len(c)
+    bounds = sharded.key_bounds(8, cfg)
+    step, _ = sharded.make_sharded_insert(cfg, mesh, halo_capacity=8)
+    stack, met, _ = step(sharded.create_sharded_state(cfg, mesh, origin),
+                         padded, n_per, POS, bounds)
+    assert int(met["route_overflow"]) > 0            # blocks held twice
+    before = sharded.state_stack_to_numpy(stack)
+
+    merged = sharded.merge_states_host(stack, cfg, device="cpu")
+    single, s_met = carve.carve_step(merged, _t(pts), len(pts), _t(POS),
+                                     ccfg)
+    stack, t_met = sharded.make_sharded_carve(ccfg, mesh)(
+        stack, pts, len(pts), POS, bounds)
+    for k in ("n_carve_samples", "n_carve_dropped", "n_carved_voxels"):
+        assert int(t_met[k]) == int(s_met[k]), k
+    assert int(t_met["n_carve_dropped"]) >= 0
+    got = sharded.merge_states_host(stack, cfg, device="cpu")
+    assert torch.equal(got.dir_keys, single.dir_keys)
+    nb = int(single.n_blocks)
+    assert torch.equal(got.pool_w[:nb], single.pool_w[:nb])
+    assert float((got.pool_sd[:nb] - single.pool_sd[:nb]).abs().max()) \
+        < 1e-4
+
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    jmesh = j_sh.make_mesh(8)
+    jstack = j_state.ActiveMapState(**{
+        f: jax.device_put(np.stack([b[f] for b in before]),
+                          NamedSharding(jmesh, P("shard")))
+        for f in before[0]})
+    _, j_met = j_sh.make_sharded_carve(_jax(ccfg), jmesh)(
+        jstack, jnp.asarray(pts), np.int32(len(pts)), jnp.asarray(POS))
+    assert int(j_met["n_carve_samples"]) > int(s_met["n_carve_samples"])

@@ -1,9 +1,11 @@
 """The port's checkpoints (``chad_tsdf_tpu_torch/io/checkpoint.py``) on the
-CPU: the single-device cases of tests/test_checkpoint.py, and checkpoints
-that cross packages — one written by the JAX package loads into the port
-and one written by the port loads into the JAX package, with equal
-states and voxel samples."""
+CPU: the cases of tests/test_checkpoint.py, the sharded one included (8
+shards resumed on 4 and on one device), and checkpoints that cross
+packages — one written by the JAX package loads into the port and one
+written by the port loads into the JAX package, single-device and sharded,
+with equal states and voxel samples."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -14,9 +16,12 @@ from chad_tsdf_tpu import MapConfig as JaxMapConfig
 from chad_tsdf_tpu import TSDFMap as JaxTSDFMap
 from chad_tsdf_tpu.io import load_checkpoint as j_load
 from chad_tsdf_tpu.io import save_checkpoint as j_save
+from chad_tsdf_tpu.parallel import ShardedTSDFMap as JaxShardedTSDFMap
+from chad_tsdf_tpu.parallel import make_mesh as jax_make_mesh
 from chad_tsdf_tpu_torch import MapConfig, TSDFMap
 from chad_tsdf_tpu_torch.io import load_checkpoint, save_checkpoint
 from chad_tsdf_tpu_torch.io import checkpoint as t_checkpoint
+from chad_tsdf_tpu_torch.parallel import ShardedTSDFMap, make_mesh
 
 SMALL = dict(max_points=2048, block_capacity=4096, touched_capacity=4096,
              accumulate_impl="xla")
@@ -223,6 +228,8 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
 
 
 def test_load_defaults_to_cuda_and_refuses_a_mesh(tmp_path, monkeypatch):
+    """Loading defaults to the card and raises without one; a mesh (once
+    refused, now ported) resumes the map sharded on its devices."""
     m = _map()
     m.insert(sphere_points(512), np.zeros(3))
     p = str(tmp_path / "c.npz")
@@ -230,6 +237,70 @@ def test_load_defaults_to_cuda_and_refuses_a_mesh(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         load_checkpoint(p)
-    with pytest.raises(NotImplementedError):
-        load_checkpoint(p, device="cpu", mesh=object())
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_checkpoint(p, mesh=make_mesh(2))
+    sm = load_checkpoint(p, device="cpu", mesh=make_mesh(2, device="cpu"))
+    assert isinstance(sm, ShardedTSDFMap) and sm.n_shards == 2
+    assert sum(int(st.n_blocks) for st in sm.state_stack) == \
+        int(m.state.n_blocks)
+    for got, want in zip(sm.voxel_samples(), m.voxel_samples()):
+        np.testing.assert_array_equal(got, want)
     assert t_checkpoint.FORMAT_VERSION == 2
+
+
+def _sharded_cfg():
+    return MapConfig(max_points=512, block_capacity=4096,
+                     touched_capacity=2048, accumulate_impl="xla")
+
+
+def test_sharded_checkpoint_topology_elastic(tmp_path):
+    """An 8-shard map checkpointed and resumed on one device and on 4
+    shards: voxel samples equal; after more scans into the 8- and the
+    4-shard map, codes equal and sd within two codec steps on 98%."""
+    pts = sphere_points(4096, r=2.0, seed=13)
+    pos = np.zeros(3, np.float32)
+    m8 = ShardedTSDFMap(config=_sharded_cfg(),
+                        mesh=make_mesh(8, device="cpu"))
+    m8.insert(pts, pos)
+    c0, s0 = m8.voxel_samples()
+    p = str(tmp_path / "sharded.npz")
+    save_checkpoint(p, m8)
+    m1 = load_checkpoint(p, device="cpu")
+    for got, want in zip(m1.voxel_samples(), (c0, s0)):
+        np.testing.assert_array_equal(got, want)
+    m4 = load_checkpoint(p, mesh=make_mesh(4, device="cpu"))
+    for got, want in zip(m4.voxel_samples(), (c0, s0)):
+        np.testing.assert_array_equal(got, want)
+    more = sphere_points(2048, r=1.0, seed=14)
+    m4.insert(more, pos)
+    m8.insert(more, pos)
+    c4, s4 = m4.voxel_samples()
+    c8, s8 = m8.voxel_samples()
+    np.testing.assert_array_equal(c4, c8)
+    assert (np.abs(s4 - s8) <= 2 * 0.1 / 127).mean() > 0.98
+    assert m4.stats()["n_shards"] == 4
+
+
+def test_sharded_checkpoint_crosses_packages(tmp_path):
+    """A JAX 8-shard map's checkpoint resumes on a 4-shard port mesh, and
+    a port 8-shard map's on a 4-device JAX mesh: voxel samples equal."""
+    pts = sphere_points(4096, r=2.0, seed=15)
+    pos = np.zeros(3, np.float32)
+    jm = JaxShardedTSDFMap(
+        config=JaxMapConfig(**dataclasses.asdict(_sharded_cfg())),
+        mesh=jax_make_mesh(8))
+    jm.insert(pts, pos)
+    pj = str(tmp_path / "jax.npz")
+    j_save(pj, jm)
+    tm4 = load_checkpoint(pj, mesh=make_mesh(4, device="cpu"))
+    for got, want in zip(tm4.voxel_samples(), jm.voxel_samples()):
+        np.testing.assert_array_equal(got, want)
+
+    tm = ShardedTSDFMap(config=_sharded_cfg(),
+                        mesh=make_mesh(8, device="cpu"))
+    tm.insert(pts, pos)
+    pt = str(tmp_path / "port.npz")
+    save_checkpoint(pt, tm)
+    jm4 = j_load(pt, mesh=jax_make_mesh(4))
+    for got, want in zip(jm4.voxel_samples(), tm.voxel_samples()):
+        np.testing.assert_array_equal(got, want)

@@ -2,18 +2,20 @@
 ``TSDFMap.optimize_loop_closures`` on the CPU, against the JAX package's
 ``slam/posegraph.py``: SE(3) exp / log, the optimizer on the same graphs
 (poses, gated edges, iterations), the outlier gate and the large-drift
-hypothesis test of tests/test_posegraph.py, the three map cases of
-tests/test_loop_closure.py, and a ``raycast`` that answers from the
-corrected map."""
+hypothesis test of tests/test_posegraph.py, the normal equations summed
+over an 8-shard mesh, the three map cases of tests/test_loop_closure.py,
+and a ``raycast`` that answers from the corrected map."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chad_tsdf_tpu.parallel import make_mesh as jax_make_mesh
 from chad_tsdf_tpu.slam import posegraph as j_pg
 from chad_tsdf_tpu_torch import MapConfig, TSDFMap
 from chad_tsdf_tpu_torch.io import load_checkpoint, save_checkpoint
+from chad_tsdf_tpu_torch.parallel import make_mesh
 from chad_tsdf_tpu_torch.slam import posegraph as pg
 
 DRIFT = np.float32([0.35, 0.0, 0.0])
@@ -182,9 +184,24 @@ def test_large_drift_loop_closure_not_gated():
 
 
 def test_sharded_reduction_not_ported():
+    """The sharded reduction (once refused, now ported): edges padded and
+    split over an 8-shard mesh, their normal equations summed, equal the
+    single-device solve and the JAX package's 8-device solve within
+    tests/test_posegraph.py's tolerance."""
     _, graph, init = _problem("drift")
-    with pytest.raises(NotImplementedError):
-        pg.optimize_poses(graph, init, mesh=object(), device="cpu")
+    opt1, s1 = pg.optimize_poses(graph, init, iterations=8, device="cpu")
+    opt8, s8 = pg.optimize_poses(graph, init, iterations=8,
+                                 mesh=make_mesh(8, device="cpu"),
+                                 device="cpu")
+    np.testing.assert_allclose(opt8, opt1, rtol=1e-3, atol=1e-4)
+    assert abs(s8["final_cost"] - s1["final_cost"]) <= \
+        1e-3 * max(1.0, s1["final_cost"])
+    jg = j_pg.PoseGraph(graph.n_nodes, graph.edges, graph.measurements,
+                        graph.weights)
+    jopt, js = j_pg.optimize_poses(jg, init, iterations=8,
+                                   mesh=jax_make_mesh(8))
+    np.testing.assert_allclose(opt8, jopt, rtol=1e-3, atol=1e-4)
+    assert s8["gated_edges"] == js["gated_edges"]
 
 
 # --- the map: tests/test_loop_closure.py ---------------------------------
@@ -276,8 +293,12 @@ def test_loop_closure_noop_without_drift():
     after, sd_after = m.voxel_samples()
     np.testing.assert_array_equal(before, after)
     np.testing.assert_allclose(sd_before, sd_after)
-    with pytest.raises(NotImplementedError):
-        m.optimize_loop_closures(mesh=object())
+    # the normal equations summed over a mesh: still nothing moves
+    m.optimize_loop_closures(loop_edges=[(0, 1, _trans(POS2_TRUE), 1000.0)],
+                             mesh=make_mesh(4, device="cpu"))
+    after, sd_after = m.voxel_samples()
+    np.testing.assert_array_equal(before, after)
+    np.testing.assert_allclose(sd_before, sd_after)
 
 
 def test_loop_closure_checkpoint_roundtrip(drifted, tmp_path):

@@ -160,8 +160,9 @@ def test_port_imports_no_jax(tmp_path):
     too — then a rotating two-scan packed ``seg`` stream with carving,
     ``stats()``, a save through device marching cubes with the ``.grid``
     dump, ``leaf_arrays``, ``raycast``, ``merge``, a deferred ``fused``
-    insert, a checkpoint saved and loaded, and a loop closure on the CPU
-    (the DAG built through the native runtime where g++ builds it), loads
+    insert, a checkpoint saved and loaded, a loop closure, and a 2-shard
+    ``ShardedTSDFMap`` insert on the CPU (the DAG built through the native
+    runtime where g++ builds it), loads
     neither jax nor any module of the JAX package.  It runs in a
     temporary directory: ``save`` writes ``hashgrid.grid`` there."""
     code = """
@@ -177,6 +178,7 @@ import chad_tsdf_tpu_torch.mesh.device_mc, chad_tsdf_tpu_torch.mesh.grid
 import chad_tsdf_tpu_torch.mesh.optimize, chad_tsdf_tpu_torch.mesh.rmse
 import chad_tsdf_tpu_torch.core.carve, chad_tsdf_tpu_torch.io.checkpoint
 import chad_tsdf_tpu_torch.slam.posegraph
+import chad_tsdf_tpu_torch.parallel, chad_tsdf_tpu_torch.parallel.distributed
 from chad_tsdf_tpu_torch import TSDFMap, MapConfig
 from chad_tsdf_tpu_torch.io import load_checkpoint, save_checkpoint
 rng = np.random.default_rng(0)
@@ -208,6 +210,13 @@ loop = np.eye(4)
 loop[:3, 3] = shift
 assert m.optimize_loop_closures(loop_edges=[(0, 1, loop, 10.0)])[
     "iterations"] > 0
+from chad_tsdf_tpu_torch.parallel import ShardedTSDFMap, make_mesh
+s = ShardedTSDFMap(config=MapConfig(max_points=2048, block_capacity=4096,
+                                    touched_capacity=4096,
+                                    accumulate_impl="xla"),
+                   mesh=make_mesh(2, device="cpu"))
+s.insert(pts, np.zeros(3, np.float32))
+assert s.stats()["n_shards"] == 2 and s.voxel_samples()[0].shape[0] > 0
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k == "chad_tsdf_tpu" or k.startswith("chad_tsdf_tpu."))
 assert not bad, bad
