@@ -25,19 +25,56 @@
 //    nb - 1, as on the TPU).
 // M3 micro_mxu8 replaces scripts/micro_mxu8.py:build (:121-144): per
 //    1024-point tile, onehot(offset)^T (512 x K*1024) contracted with
-//    [sel . sdq, sel] (K*1024 x 2nb) on the tensor cores with mma.sync, in
-//    bf16 with f32 sums (m16n8k16) or in int8 with int32 sums (m16n8k32).
-//    Fragments are built in registers from the samples, so the one-hot never
-//    exists in memory; each of 16 warps owns 32 offset rows.  sdq must lie
-//    in [-127, 127] and lrow in [0, nb): then both precisions are exact.
+//    [sel . sdq, sel] (K*1024 x 2nb) on the tensor cores, in bf16 with f32
+//    sums or in int8 with int32 sums.  sdq must lie in [-127, 127]: then
+//    both precisions are exact (every sum is an integer below 2^24).
 //
 // M1/M2 sum sd as integers on the SD_QUANT grid (quantized with qscale,
 // dequantized with dscale), as K1/K4 do; their plain versions do the same.
 // What bounds them is what bounds K1/K4: the list's rounds and the
-// shared-memory atomics.  M3 is bound by the rate at which MMAs are
-// started: the dense one-hot spends 512 multiply-adds per sample and
-// column.
+// shared-memory atomics.
+//
+// M3's design (one CTA of two warpgroups per tile, two CTAs an SM):
+//   1. stage: the tile's 10,240 samples are read once (int4 a thread and
+//      row, two rows of loads in flight) and packed into one word each in
+//      shared memory; samples with use == 0 or lrow outside [0, nb) become
+//      0 and add nothing;
+//   2. bucket: a counting sort by offset group (okey >> 6, 8 groups of 64
+//      rows) through a block scan of packed 16-bit counts.  A sample now
+//      meets only the 64 rows of its group: 8x fewer multiply-adds than
+//      the dense 512-row one-hot.  Each group's list is read as if padded
+//      with null samples to a multiple of one wgmma's K (16 bf16, 32 int8);
+//   3. wgmma: each warpgroup takes 4 groups; per group D (64 x 2nb) +=
+//      A (64 x samples) B (samples x 2nb), both operands in shared memory,
+//      K-major (int8 wgmma takes no other), chunk by chunk: 128 bytes of K
+//      (4 wgmmas) where two CTAs still fit an SM (nb <= 40), else 64.  A
+//      chunk is written by one store a sample for the one-hot and two for
+//      [sel . sdq, sel] into buffers that are zero, and its writer clears
+//      the same three entries once the chunk's wgmmas are done
+//      (wait_group 1), so nothing is zero-filled per chunk; two buffers a
+//      warpgroup let the next chunk be written while this one runs.  Each
+//      group's 64 x 2nb sums are written straight from the accumulator
+//      fragments, zero rows included.
+//   The one-hot stays in shared memory (the SS form) rather than in
+//   registers: built in registers, each k16 step costs every thread 4
+//   (bf16) or 8 (int8) shared loads and compares, and fragments kept alive
+//   across the asynchronous wgmmas cost 16-32 registers more.
+//   Bound: M3's inputs need their bytes, 16 B x K x N in and 2 x 4 B x T x
+//   nb x 512 out: 0.100 ms at the H100's 3.35 TB/s for K = 10, N = 2^20,
+//   nb = 40.  The bucketed product (77.9 GFLOP in bf16, 78.6 in int8 at
+//   the script's inputs, where 72% of the samples are kept: 0.079 ms at
+//   the bf16 peak, 0.040 ms at int8's) is what this design spends, not
+//   what the function needs.  On the card (scripts/m3_turns.py, PERF.md)
+//   the kernel takes about 0.23 ms in bf16 and 0.18 ms in int8: staging
+//   and bucketing alone take 0.07 ms, and the chunk loop (writes, proxy
+//   fence, warpgroup barrier) and the stores, not the wgmmas, set the
+//   pace; two CTAs an SM overlap one tile's loads with another's chunks
+//   only in part.  The kernel writes the wgmmas it issued per tile
+//   (steps), so a run can hold them to the padded lists.
+#include <type_traits>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace chad {
 
@@ -225,202 +262,290 @@ micro_tile_accum_kernel(const int* __restrict__ bkeys,
   tile_slab_accumulate(s, rows, nb, tile, dscale, psd, pw, true);
 }
 
-// ---- M3: tensor-core one-hot contraction ----
-constexpr int kMmaWarps = 16;                    // 16 x 32 = 512 offset rows
-constexpr unsigned kBf16One = 0x3F80u;
+// ---- M3: one-hot contraction bucketed by offset group, on wgmma ----
+constexpr int kM3Threads = 256;        // two warpgroups
+constexpr int kM3WgThreads = 128;
+constexpr int kM3Groups = 8;           // okey >> 6: groups of 64 offset rows
+constexpr int kM3GroupRows = 64;       // = wgmma's M
+constexpr int kM3Parities = 2;         // chunk buffers a warpgroup (c & 1)
+constexpr int kM3RowsInFlight = 2;     // rows of a tile loaded at once
+constexpr unsigned kM3Keep = 1u << 31;
 
-// sample word: okey (9 bits) | lrow (6 bits) << 9 | use << 15 | sdq << 16
-__device__ __forceinline__ int mma_off(int w) { return w & 0x1FF; }
-__device__ __forceinline__ int mma_lrow(int w) { return (w >> 9) & 0x3F; }
-__device__ __forceinline__ bool mma_use(int w) { return (w >> 15) & 1; }
-__device__ __forceinline__ int mma_sdq(int w) { return w >> 16; }
-
-// column j of [sel . sdq, sel] for one sample (nb columns each)
-__device__ __forceinline__ int mma_val(int w, int j, int nb) {
-  const bool is_w = j >= nb;
-  const bool sel = mma_use(w) && mma_lrow(w) == (is_w ? j - nb : j);
-  return sel ? (is_w ? 1 : mma_sdq(w)) : 0;
+// staged sample word, 0 for a sample that adds nothing:
+// okey (9 bits) | lrow (6) << 9 | sdq (8) << 16 | kM3Keep
+__device__ __forceinline__ int m3_group(unsigned w) { return (w >> 6) & 7; }
+__device__ __forceinline__ int m3_row(unsigned w) { return w & 63; }
+__device__ __forceinline__ int m3_lrow(unsigned w) { return (w >> 9) & 63; }
+__device__ __forceinline__ int m3_sdq(unsigned w) {
+  return (int)(signed char)((w >> 16) & 0xFF);
 }
 
-__device__ __forceinline__ unsigned bf16_bits(int x) {   // exact, |x| <= 256
-  return __float_as_uint((float)x) >> 16;
+// 16-bit count of group g in a pair of packed counters (groups 0-3 in lo)
+__device__ __forceinline__ int m3_field(unsigned long long lo,
+                                        unsigned long long hi, int g) {
+  return (int)(((g < 4 ? lo : hi) >> (16 * (g & 3))) & 0xFFFF);
 }
 
-__device__ __forceinline__ unsigned pack_bf16(unsigned lo, unsigned hi) {
-  return lo | (hi << 16);
+// N = 2 nb columns of [sel . sdq, sel]
+template <int N, bool kInt8>
+struct M3Shape {
+  static constexpr int kElem = kInt8 ? 1 : 2;           // operand bytes
+  static constexpr int kStep = kInt8 ? 32 : 16;         // K of one wgmma
+  static constexpr int kCore = 16 / kElem;              // K of a core row
+  // K bytes of a chunk: 128 (4 wgmmas) where two CTAs still fit an SM
+  static constexpr int kChunkBytes = N <= 80 ? 128 : 64;
+  static constexpr int kChunk = kChunkBytes / kElem;    // samples a chunk
+  static constexpr int kSteps = kChunk / kStep;         // wgmmas a chunk
+  static constexpr int kABytes = kM3GroupRows * kChunkBytes;
+  static constexpr int kParBytes = kABytes + N * kChunkBytes;
+  // the chunk buffers of both warpgroups
+  static constexpr int kBufBytes = 2 * kM3Parities * kParBytes;
+  static_assert(kChunk <= kM3WgThreads, "one sample a thread and chunk");
+};
+
+// bytes of the region that holds the staged words, then the chunk buffers
+template <int N, bool kInt8>
+__host__ __device__ constexpr int m3_region_bytes(int k) {
+  return M3Shape<N, kInt8>::kBufBytes > k * kTile * 4
+             ? M3Shape<N, kInt8>::kBufBytes : k * kTile * 4;
 }
 
-__device__ __forceinline__ unsigned pack_s8(int a, int b, int c, int d) {
-  return (unsigned)(a & 0xFF) | ((unsigned)(b & 0xFF) << 8) |
-         ((unsigned)(c & 0xFF) << 16) | ((unsigned)(d & 0xFF) << 24);
+// byte of element (row, k) in a chunk of a K-major operand of `rows` rows:
+// core matrices along K are rows * 16 bytes apart (LBO), 8-row groups 128
+// (SBO)
+template <int N, bool kInt8>
+__device__ __forceinline__ int m3_kmajor(int row, int k, int rows) {
+  using S = M3Shape<N, kInt8>;
+  return (k / S::kCore) * rows * 16 + (row >> 3) * 128 + (row & 7) * 16 +
+         (k % S::kCore) * S::kElem;
 }
 
-template <int NT, bool kInt8>
-__global__ void __launch_bounds__(kMmaWarps * 32)
+// Sets (or clears) one sample's entries in a chunk: A[row][slot] = 1,
+// B[lrow][slot] = sdq, B[nb + lrow][slot] = 1.
+template <int N, bool kInt8>
+__device__ __forceinline__ void m3_put(unsigned char* a, unsigned char* b,
+                                       unsigned w, int slot, bool set) {
+  const int lr = m3_lrow(w);
+  const int ia = m3_kmajor<N, kInt8>(m3_row(w), slot, kM3GroupRows);
+  const int isd = m3_kmajor<N, kInt8>(lr, slot, N);
+  const int iw = m3_kmajor<N, kInt8>(N / 2 + lr, slot, N);
+  if (kInt8) {
+    a[ia] = set ? 1 : 0;
+    b[isd] = set ? (unsigned char)m3_sdq(w) : 0;
+    b[iw] = set ? 1 : 0;
+  } else {   // bf16 bits; exact for |sdq| <= 256
+    const unsigned short one = 0x3F80;
+    const unsigned short sd =
+        (unsigned short)(__float_as_uint((float)m3_sdq(w)) >> 16);
+    *reinterpret_cast<unsigned short*>(a + ia) = set ? one : 0;
+    *reinterpret_cast<unsigned short*>(b + isd) = set ? sd : 0;
+    *reinterpret_cast<unsigned short*>(b + iw) = set ? one : 0;
+  }
+}
+
+// One CTA per tile.
+template <int N, bool kInt8>
+__global__ void __launch_bounds__(kM3Threads, 2)
 micro_mxu8_kernel(const int* __restrict__ okey, const int* __restrict__ sdq,
                   const int* __restrict__ lrow, const int* __restrict__ use,
-                  int n, int k, int nb, float* __restrict__ psd,
-                  float* __restrict__ pw) {
-  extern __shared__ int words[];                 // [k * kTile]
-  const int tid = threadIdx.x;
+                  int n, int k, float* __restrict__ psd,
+                  float* __restrict__ pw, int* __restrict__ steps_out) {
+  using S = M3Shape<N, kInt8>;
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  constexpr int nb = N / 2;
+  extern __shared__ __align__(128) unsigned char m3_smem[];
+  __shared__ unsigned long long wsum[2][kM3Threads / 32];
+  __shared__ int gstart[kM3Groups], gkept[kM3Groups];
+  __shared__ int nsteps;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int samples = k * kTile;
-  for (int i = tid; i < samples; i += kMmaWarps * 32) {
-    const int r = i / kTile, c = i - r * kTile;
-    const size_t gi = (size_t)r * n + (size_t)tile * kTile + c;
-    const int lr = lrow[gi];
-    const bool u = use[gi] != 0 && lr >= 0 && lr < nb;
-    words[i] = (okey[gi] & 0x1FF) | ((u ? lr : 0) << 9) | ((int)u << 15) |
-               (int)((unsigned)sdq[gi] << 16);
+  unsigned* stage = reinterpret_cast<unsigned*>(m3_smem);
+  unsigned* sorted =
+      reinterpret_cast<unsigned*>(m3_smem + m3_region_bytes<N, kInt8>(k));
+
+  // 1. stage the tile's samples as words (4 columns a thread, each row
+  // read as int4, kM3RowsInFlight rows of loads issued at once) and count
+  // the kept ones of each group
+  unsigned long long lo = 0, hi = 0;
+  for (int r0 = 0; r0 < k; r0 += kM3RowsInFlight) {
+    int4 o[kM3RowsInFlight], s[kM3RowsInFlight], l[kM3RowsInFlight],
+        u[kM3RowsInFlight];
+#pragma unroll
+    for (int h = 0; h < kM3RowsInFlight; ++h) {
+      if (r0 + h >= k) break;
+      const size_t g0 =
+          (size_t)(r0 + h) * n + (size_t)tile * kTile + 4 * tid;
+      o[h] = __ldg(reinterpret_cast<const int4*>(okey + g0));
+      s[h] = __ldg(reinterpret_cast<const int4*>(sdq + g0));
+      l[h] = __ldg(reinterpret_cast<const int4*>(lrow + g0));
+      u[h] = __ldg(reinterpret_cast<const int4*>(use + g0));
+    }
+#pragma unroll
+    for (int h = 0; h < kM3RowsInFlight; ++h) {
+      if (r0 + h >= k) break;
+      const int oo[4] = {o[h].x, o[h].y, o[h].z, o[h].w};
+      const int ss[4] = {s[h].x, s[h].y, s[h].z, s[h].w};
+      const int ll[4] = {l[h].x, l[h].y, l[h].z, l[h].w};
+      const int uu[4] = {u[h].x, u[h].y, u[h].z, u[h].w};
+      unsigned w[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool keep = uu[c] != 0 && ll[c] >= 0 && ll[c] < nb;
+        w[c] = keep ? (unsigned)(oo[c] & 0x1FF) | ((unsigned)ll[c] << 9) |
+                          (((unsigned)ss[c] & 0xFF) << 16) | kM3Keep
+                    : 0u;
+        const int g = (oo[c] >> 6) & 7;
+        const unsigned long long one =
+            keep ? 1ull << (16 * (g & 3)) : 0ull;
+        if (g < 4) lo += one; else hi += one;
+      }
+      *reinterpret_cast<uint4*>(stage + (r0 + h) * kTile + 4 * tid) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+
+  // 2. counting sort by group: exclusive block scan of the packed counts
+  const unsigned long long own_lo = lo, own_hi = hi;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned long long a = __shfl_up_sync(0xFFFFFFFFu, lo, d);
+    const unsigned long long b = __shfl_up_sync(0xFFFFFFFFu, hi, d);
+    if (lane >= d) { lo += a; hi += b; }
+  }
+  if (lane == 31) { wsum[0][warp] = lo; wsum[1][warp] = hi; }
+  __syncthreads();
+  unsigned long long base_lo = lo - own_lo, base_hi = hi - own_hi;
+  unsigned long long tot_lo = 0, tot_hi = 0;
+#pragma unroll
+  for (int w = 0; w < kM3Threads / 32; ++w) {
+    if (w < warp) { base_lo += wsum[0][w]; base_hi += wsum[1][w]; }
+    tot_lo += wsum[0][w];
+    tot_hi += wsum[1][w];
+  }
+  if (tid == 0) {
+    int start = 0;
+    for (int g = 0; g < kM3Groups; ++g) {
+      gstart[g] = start;
+      gkept[g] = m3_field(tot_lo, tot_hi, g);
+      start += gkept[g];
+    }
+    nsteps = 0;
   }
   __syncthreads();
-
-  // rows (offsets) of this thread's A fragments: m-tile mt, half h
-  int row[2][2];
+  for (int r = 0; r < k; ++r) {
+    const uint4 v = *reinterpret_cast<const uint4*>(stage + r * kTile +
+                                                   4 * tid);
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    row[mt][0] = warp * 32 + mt * 16 + g;
-    row[mt][1] = row[mt][0] + 8;
-  }
-  float accf[2][NT][4];
-  int acci[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        accf[mt][nt][e] = 0.0f;
-        acci[mt][nt][e] = 0;
-      }
-
-  if (!kInt8) {
-    // m16n8k16: this thread's samples are chunk columns t4*2 + {0,1,8,9}
-    for (int base = 0; base < samples; base += 16) {
-      int w[4];
-      w[0] = words[base + t4 * 2];
-      w[1] = words[base + t4 * 2 + 1];
-      w[2] = words[base + t4 * 2 + 8];
-      w[3] = words[base + t4 * 2 + 9];
-      unsigned a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int rr = row[mt][h];
-          // a0,a1 (row g) / a2,a3 (row g+8): columns 0,1; a4..a7: +8
-          a[mt][h] = pack_bf16(mma_off(w[0]) == rr ? kBf16One : 0u,
-                               mma_off(w[1]) == rr ? kBf16One : 0u);
-          a[mt][h + 2] = pack_bf16(mma_off(w[2]) == rr ? kBf16One : 0u,
-                                   mma_off(w[3]) == rr ? kBf16One : 0u);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int j = nt * 8 + g;
-        const unsigned b0 = pack_bf16(bf16_bits(mma_val(w[0], j, nb)),
-                                      bf16_bits(mma_val(w[1], j, nb)));
-        const unsigned b1 = pack_bf16(bf16_bits(mma_val(w[2], j, nb)),
-                                      bf16_bits(mma_val(w[3], j, nb)));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float* c = accf[mt][nt];
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-              : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-              : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
-                "r"(b0), "r"(b1));
-        }
-      }
+    for (int c = 0; c < 4; ++c) {
+      if (w[c] == 0u) continue;
+      const int g = m3_group(w[c]);
+      sorted[gstart[g] + m3_field(base_lo, base_hi, g)] = w[c];
+      const unsigned long long one = 1ull << (16 * (g & 3));
+      if (g < 4) base_lo += one; else base_hi += one;
     }
-  } else {
-    // m16n8k32: this thread's samples are chunk columns t4*4 + {0..3} and
-    // t4*4 + 16 + {0..3}
-    for (int base = 0; base < samples; base += 32) {
-      int w[8];
+  }
+  __syncthreads();
+  // the chunk buffers (over the staged words) start zero; a chunk's
+  // writer clears its entries once the wgmmas that read them are done
+  for (int i = tid; i < S::kBufBytes / 16; i += kM3Threads) {
+    reinterpret_cast<uint4*>(m3_smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // 3. per group, D (64 x N) += onehot(okey & 63) (64 x samples) times
+  // [sel . sdq, sel] (samples x N), chunk by chunk; each group's list is
+  // read as if padded with null samples to a multiple of one wgmma's K.
+  // Double buffered: a chunk is written while the one before runs.
+  // wg is warp-uniform (shuffled from lane 0), so that ptxas sees the
+  // group loop and the wgmmas in it as uniform and does not serialize them
+  const int wg = __shfl_sync(0xFFFFFFFFu, tid / kM3WgThreads, 0);
+  const int wtid = tid % kM3WgThreads;
+  unsigned char* bufs = m3_smem + wg * kM3Parities * S::kParBytes;
+  const uint32_t bufs_s = (uint32_t)__cvta_generic_to_shared(bufs);
+  Acc acc[N / 2];
+  unsigned last0 = 0u, last1 = 0u;    // word each parity holds at wtid
+  int c = 0, my_steps = 0;
+  for (int g = wg; g < kM3Groups; g += 2) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0;
+    wgmma_fence_regs(acc);
+    const int kept = gkept[g];
+    const int len = (kept + S::kStep - 1) / S::kStep * S::kStep;
+    const unsigned* list = sorted + gstart[g];
+    for (int k0 = 0; k0 < len; k0 += S::kChunk, ++c) {
+      const int q = c & 1;
+      unsigned char* a = bufs + q * S::kParBytes;
+      wgmma_wait<kM3Parities - 1>();   // chunk c - 2 (parity q) is done
+      if (wtid < S::kChunk) {
+        const unsigned old = q ? last1 : last0;
+        if (old) m3_put<N, kInt8>(a, a + S::kABytes, old, wtid, false);
+        const unsigned w = k0 + wtid < kept ? list[k0 + wtid] : 0u;
+        if (w) m3_put<N, kInt8>(a, a + S::kABytes, w, wtid, true);
+        if (q) last1 = w; else last0 = w;
+      }
+      fence_proxy_async();
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kM3WgThreads)
+                   : "memory");
+      const uint32_t sa = bufs_s + q * S::kParBytes;
+      const uint64_t da = wgmma_desc(sa, kM3GroupRows * 16, 128);
+      const uint64_t db = wgmma_desc(sa + S::kABytes, N * 16, 128);
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < S::kSteps; ++st) {
+        // step st reads K core matrices 2 st and 2 st + 1
+        if (k0 + st * S::kStep < len) {
+          wgmma_ss(acc, da + ((2 * st * kM3GroupRows * 16) >> 4),
+                   db + ((2 * st * N * 16) >> 4));
+          ++my_steps;
+        }
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    const int row = (wtid >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        w[e] = words[base + t4 * 4 + e];
-        w[e + 4] = words[base + t4 * 4 + 16 + e];
-      }
-      unsigned a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int rr = row[mt][h];
-          // a0..a3 (row g) / a4..a7 (row g+8): columns 0..3; a8..a15: +16
-          a[mt][h] = pack_s8(mma_off(w[0]) == rr, mma_off(w[1]) == rr,
-                             mma_off(w[2]) == rr, mma_off(w[3]) == rr);
-          a[mt][h + 2] = pack_s8(mma_off(w[4]) == rr, mma_off(w[5]) == rr,
-                                 mma_off(w[6]) == rr, mma_off(w[7]) == rr);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int j = nt * 8 + g;
-        const unsigned b0 = pack_s8(mma_val(w[0], j, nb), mma_val(w[1], j, nb),
-                                    mma_val(w[2], j, nb), mma_val(w[3], j, nb));
-        const unsigned b1 = pack_s8(mma_val(w[4], j, nb), mma_val(w[5], j, nb),
-                                    mma_val(w[6], j, nb), mma_val(w[7], j, nb));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          int* c = acci[mt][nt];
-          asm volatile(
-              "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-              : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-              : "r"(a[mt][0]), "r"(a[mt][1]), "r"(a[mt][2]), "r"(a[mt][3]),
-                "r"(b0), "r"(b1));
-        }
+        const int col = 8 * j + 2 * (lane & 3) + (e & 1);
+        float* out = 8 * j < nb ? psd : pw;
+        const int b = 8 * j < nb ? col : col - nb;
+        out[((size_t)tile * nb + b) * kRowLen + g * kM3GroupRows + row +
+            8 * (e >> 1)] = (float)acc[4 * j + e];
       }
     }
   }
-
-  // C fragment: c0,c1 at (row g, columns t4*2 + {0,1}); c2,c3 at row g+8
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int off = row[mt][e >> 1];
-        const int j = nt * 8 + t4 * 2 + (e & 1);
-        const float v = kInt8 ? (float)acci[mt][nt][e] : accf[mt][nt][e];
-        float* out = j < nb ? psd : pw;
-        const int b = j < nb ? j : j - nb;
-        out[((size_t)tile * nb + b) * kRowLen + off] = v;
-      }
-    }
-  }
+  if (wtid == 0) atomicAdd(&nsteps, my_steps);
+  __syncthreads();
+  if (tid == 0 && steps_out != nullptr) steps_out[tile] = nsteps;
 }
 
-template <int NT, bool kInt8>
+template <int N, bool kInt8>
 int launch_mxu8(const int* okey, const int* sdq, const int* lrow,
-                const int* use, int n, int k, int nb, float* psd, float* pw,
-                cudaStream_t stream) {
-  auto kern = micro_mxu8_kernel<NT, kInt8>;
-  const int smem = k * kTile * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                const int* use, int n, int k, float* psd, float* pw,
+                int* steps, cudaStream_t stream) {
+  auto kern = micro_mxu8_kernel<N, kInt8>;
+  const int smem = m3_region_bytes<N, kInt8>(k) + k * kTile * 4;
+  cudaError_t err = tile_kernel_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<n / kTile, kMmaWarps * 32, smem, stream>>>(okey, sdq, lrow, use, n,
-                                                    k, nb, psd, pw);
+  if (n / kTile == 0) return 0;
+  kern<<<n / kTile, kM3Threads, smem, stream>>>(okey, sdq, lrow, use, n, k,
+                                                psd, pw, steps);
   CHAD_RETURN_LAUNCH_ERROR();
 }
 
 template <bool kInt8>
 int dispatch_mxu8(const int* okey, const int* sdq, const int* lrow,
                   const int* use, int n, int k, int nb, float* psd, float* pw,
-                  cudaStream_t stream) {
-  switch (nb) {   // 2 nb columns in n-tiles of 8
-    case 16: return launch_mxu8<4, kInt8>(okey, sdq, lrow, use, n, k, nb, psd, pw, stream);
-    case 32: return launch_mxu8<8, kInt8>(okey, sdq, lrow, use, n, k, nb, psd, pw, stream);
-    case 40: return launch_mxu8<10, kInt8>(okey, sdq, lrow, use, n, k, nb, psd, pw, stream);
-    case 48: return launch_mxu8<12, kInt8>(okey, sdq, lrow, use, n, k, nb, psd, pw, stream);
+                  int* steps, cudaStream_t stream) {
+  switch (nb) {   // wgmma's N = 2 nb
+    case 16: return launch_mxu8<32, kInt8>(okey, sdq, lrow, use, n, k, psd, pw, steps, stream);
+    case 32: return launch_mxu8<64, kInt8>(okey, sdq, lrow, use, n, k, psd, pw, steps, stream);
+    case 40: return launch_mxu8<80, kInt8>(okey, sdq, lrow, use, n, k, psd, pw, steps, stream);
+    case 48: return launch_mxu8<96, kInt8>(okey, sdq, lrow, use, n, k, psd, pw, steps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -465,10 +590,11 @@ extern "C" int chad_micro_tile_accum(const int* bkeys, const int* offs,
 extern "C" int chad_micro_mxu8(const int* okey, const int* sdq,
                                const int* lrow, const int* use, int n, int k,
                                int nb, int int8, float* psd, float* pw,
-                               void* stream) {
+                               int* steps, void* stream) {
+  if (k < 1 || k > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return int8 ? chad::dispatch_mxu8<true>(okey, sdq, lrow, use, n, k, nb, psd,
-                                          pw, s)
+                                          pw, steps, s)
               : chad::dispatch_mxu8<false>(okey, sdq, lrow, use, n, k, nb,
-                                           psd, pw, s);
+                                           psd, pw, steps, s);
 }

@@ -60,7 +60,7 @@ _SIGNATURES = {
     "plan_chunks": [_P] * 2 + [_I] * 4 + [_P],
     "micro_stagea_phases": [_P] * 3 + [_I] * 4 + [_F] * 2 + [_P] * 3,
     "micro_tile_accum": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 3,
-    "micro_mxu8": [_P] * 4 + [_I] * 4 + [_P] * 2,
+    "micro_mxu8": [_P] * 4 + [_I] * 4 + [_P] * 3,
 }
 
 # launches per kernel since the last reset_launches(); a wrapper adds one

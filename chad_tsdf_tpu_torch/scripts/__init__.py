@@ -8,11 +8,12 @@ PyTorch version, then timings at the script's full sizes.  Run on a card::
     python3 -m chad_tsdf_tpu_torch.scripts.micro_tile_accum
     python3 -m chad_tsdf_tpu_torch.scripts.micro_mxu8
 
-Three more time the port's own kernels: ``k1_k2_turns`` (K1 and K2 of an
+Four more time the port's own kernels: ``k1_k2_turns`` (K1 and K2 of an
 older ``csrc/`` against this checkout's, in turns), ``k5_turns`` (K5 the
-same way) and ``kernel_phases`` (K1's device time split by phase, K2's by
-pass); ``insert_turns`` times whole dense inserts of several checkouts of
-the package in turns.
+same way), ``m3_turns`` (M3 by phase, and an older M3 in turns) and
+``kernel_phases`` (K1's device time split by phase, K2's by pass);
+``insert_turns`` times whole dense inserts of several checkouts of the
+package in turns.
 """
 
 from __future__ import annotations

@@ -23,9 +23,12 @@ runs, failing with a non-zero exit on the first error:
    plain one, both pool planes bit for bit against the plain version, and
    two launches bit-equal; the
    microbenchmark kernels M1 (every mode), M2 and M3 (both precisions) at a
-   reduced size.  K3 and K5 are also timed against one PyTorch call that
-   computes their function (``index_add_`` / ``index_put_(accumulate=
-   True)``), a yardstick the port never calls;
+   reduced size, M3 at every nb it takes on the script's inputs and on four
+   edge cases (one offset group, ``use`` all zero, sdq = +-127, lrow outside
+   [0, nb)), its wgmmas per tile equal to the padded group lists.  K3 and
+   K5 are also timed against one PyTorch call that computes their function
+   (``index_add_`` / ``index_put_(accumulate=True)``), a yardstick the port
+   never calls;
 3. the main path: ``TSDFMap(0.05, 0.1, device="cuda")`` at the default
    MapConfig inserts the 2^20-point r = 5 m sphere (seed 420, bench.py's
    cloud) and saves a PLY through device marching cubes (``mesh_impl``
@@ -41,7 +44,10 @@ runs, failing with a non-zero exit on the first error:
    fused path;
 7. the microbenchmarks' own timing runs at their full sizes
    (``chad_tsdf_tpu_torch.scripts``), then each held once more against its
-   plain version at that size;
+   plain version at that size; M3's yardstick, one ``torch.bmm`` of the
+   dense bf16 one-hot and value operands with f32 sums (equal to the plain
+   version), and beside it one ``index_add_`` of the kept samples onto
+   precomputed flat cells;
 8. the sparse streaming path at full width: bench.py's KITTI-shaped stream
    (``chad_tsdf_tpu_torch.scripts.kitti_stream``: 12 scans of ~120k points
    1.5 m apart, ``MapConfig(block_capacity=1 << 16, touched_capacity=
@@ -131,7 +137,8 @@ least time the H100 could take for the same work on this run's inputs, the
 larger of the bytes the function must move (each input read once, each
 output written once)
 over 3.35 TB/s and its operations over the peak rate of their type
-(``bound_by`` says which).  The last line is
+(``bound_by`` says which); M3's entry also has its int8 time,
+``ms_int8`` (``ms`` is bf16's).  The last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX and nothing of
 the JAX package ``chad_tsdf_tpu``, and checks that neither was loaded.
 """
@@ -173,11 +180,10 @@ KERNELS = {
     "micro_mxu8": ("chad_tsdf_tpu_torch/csrc/micro.cu",
                    "scripts/micro_mxu8.py:129"),
 }
-# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s,
-# f32 outside the tensor cores and bf16 dense tensor-core FLOP/s
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
+# f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 # f32 operations per point, counted from the kernels' code: K2's three
 # depths of 10 features (9 products, 10 sums each) and the plane fit and
 # flip (~120); K1's ray setup (~60) and ~25 per DDA step
@@ -585,12 +591,70 @@ def check_micro():
             48)["max_abs_err"],
         "micro_tile_accum": micro_tile_accum.check(
             *micro_inputs(micro_tile_accum, MICRO_CHECK_TILES))["max_abs_err"],
-        "micro_mxu8": micro_mxu8.check(
-            *micro_inputs(micro_mxu8, MICRO_CHECK_N))["max_abs_err"]}
+        "micro_mxu8": check_m3(micro_mxu8)}
     log(f"M1-M3 at a reduced size ({MICRO_CHECK_N} points, "
         f"{MICRO_CHECK_TILES} M2 tiles): every mode and precision equals its "
         f"plain version; max sd err {errs}")
     return errs
+
+
+def check_m3(m3):
+    """M3 in both precisions against its plain version, and its wgmmas per
+    tile against the padded lists, at MICRO_CHECK_N: the script's inputs
+    and each edge case (one offset group, use all zero, sdq = +-127, lrow
+    outside [0, nb)) at every nb it takes."""
+    wgmmas, err = {}, 0.0
+    for case in (None, *m3.EDGE_CASES):
+        for nb in m3.NB_SUPPORTED:
+            npy = (m3.inputs(MICRO_CHECK_N) if case is None else
+                   m3.edge_inputs(case, MICRO_CHECK_N, nb))
+            r = m3.check(*(torch.from_numpy(a).to("cuda") for a in npy), nb)
+            err = max(err, r["max_abs_err"])
+            if nb == m3.NB:
+                wgmmas[case or "inputs"] = r["wgmmas"]
+    log(f"M3 at {MICRO_CHECK_N} points: inputs and edge cases "
+        f"{m3.EDGE_CASES} at nb {m3.NB_SUPPORTED}, bf16 and int8 equal to "
+        f"the plain version, wgmmas per tile equal to the padded lists "
+        f"(all tiles, nb {m3.NB}: {wgmmas})")
+    return err
+
+
+def m3_yardsticks(m3, args):
+    """M3's library call, timed: one ``torch.bmm`` of the dense bf16
+    operands (built before the timing, freed after) with f32 sums, whose
+    output must equal the plain version's; and, logged beside it, the
+    scatter form: one ``index_add_`` of the kept samples' (sdq, 1) onto
+    precomputed flat cells."""
+    ref = m3.contract_plain(*args)
+    onehot, vals = m3.onehot_operands(*args)
+    out = torch.bmm(onehot, vals, out_dtype=torch.float32)
+    for name, a, b in zip(("psd", "pw"), m3.from_bmm(out), ref):
+        require(torch.equal(a, b), f"M3 yardstick bmm: {name} differs from "
+                                   f"the plain version")
+    del out
+    bmm_ms = cuda_ms(lambda: torch.bmm(onehot, vals,
+                                       out_dtype=torch.float32),
+                     reps=5, warmup=1)
+    op_gb = (onehot.numel() + vals.numel()) * 2 / 1e9
+    del onehot, vals
+    torch.cuda.empty_cache()
+    okey, sdq, lrow, use = args
+    t = okey.shape[1] // m3.TILE
+    sel = (use != 0) & (lrow >= 0) & (lrow < m3.NB)
+    tile = torch.arange(okey.shape[1], device="cuda")[None, :] // m3.TILE
+    cell = ((tile * m3.NB + lrow) * m3.OFFSETS + okey)[sel]
+    src = torch.stack([sdq[sel], torch.ones_like(sdq[sel])], 1).float()
+    acc = torch.zeros((t * m3.NB * m3.OFFSETS, 2), device="cuda")
+    acc.index_add_(0, cell, src)
+    require(torch.equal(acc[:, 0].reshape(ref[0].shape), ref[0]) and
+            torch.equal(acc[:, 1].reshape(ref[1].shape), ref[1]),
+            "M3 yardstick index_add_ differs from the plain version")
+    add_ms = cuda_ms(lambda: acc.index_add_(0, cell, src), reps=5)
+    log(f"M3 yardsticks: torch.bmm of the dense operands ({op_gb:.2f} GB "
+        f"of bf16) {bmm_ms:.3f} ms, equal to the plain version; "
+        f"index_add_ of {cell.numel()} kept samples onto flat cells "
+        f"{add_ms:.3f} ms, equal")
+    return bmm_ms, add_ms
 
 
 def run_micro(errs, results):
@@ -609,23 +673,27 @@ def run_micro(errs, results):
                                    time_plain=True)
     c2 = micro_tile_accum.check(*micro_inputs(micro_tile_accum),
                                 time_plain=True)
-    c3 = micro_mxu8.check(*micro_inputs(micro_mxu8), time_plain=True)
+    m3_args = micro_inputs(micro_mxu8)
+    c3 = micro_mxu8.check(*m3_args, time_plain=True)
+    bmm_ms, add_ms = m3_yardsticks(micro_mxu8, m3_args)
+    del m3_args
+    torch.cuda.empty_cache()
     # bounds at the scripts' full sizes: M1 full mode at nb 48 (its live
-    # rows from the plain list), M2 every row, M3 its 859 GFLOP of bf16
+    # rows from the plain list), M2 every row, M3 its bytes (what the
+    # inputs need, whatever product computes it)
     m1 = micro_stagea_phases
     m1_key = torch.from_numpy(m1.inputs()[0]).to("cuda")
     m1_live = int((m1.tile_lists(m1_key, 48) != m1.INF).sum())
     m1_tiles = m1.N // m1.TILE
     m2 = micro_tile_accum
     m3 = micro_mxu8
-    m3_flop = 2.0 * 512 * 2 * m3.NB * m3.K * m3.N
     bounds = {
         "micro_stagea_phases": bound(12 * m1.K * m1.N + m1_tiles * 48 * 4 +
                                      m1_live * 4096),
         "micro_tile_accum": bound(12 * m2.S * m2.NTILES + m2.NTILES * m2.NB *
                                   (4 + 4096)),
-        "micro_mxu8": bound(16 * m3.K * m3.N + (m3.N // 1024) * m3.NB * 4096,
-                            m3_flop, BF16_FLOPS)}
+        "micro_mxu8": bound(16 * m3.K * m3.N +
+                            2 * (m3.N // 1024) * m3.NB * 512 * 4)}
     for name, ms, plain_ms, err in (
             ("micro_stagea_phases", b1["ms"]["full_nb48"],
              c1["plain_ms"]["full"], c1["max_abs_err"]),
@@ -636,9 +704,15 @@ def run_micro(errs, results):
         results[name] = {"max_abs_err": max(err, errs[name]), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bounds[name][0],
                          "bound_by": bounds[name][1]}
+    results["micro_mxu8"].update(
+        ms_int8=b3["ms"]["int8"], library_ms=bmm_ms, index_add_ms=add_ms,
+        wgmmas=c3["wgmmas"], gflop=c3["gflop"])
     log(f"phase 7 microbenchmarks: M1 ms {b1['ms']}; M1 plain ms "
         f"{c1['plain_ms']}; M2 {b2}; M2 plain ms {c2['plain_ms']}; M3 ms "
-        f"{b3['ms']}; M3 plain ms {c3['plain_ms']}; launches {launches}")
+        f"{b3['ms']} (bound {bounds['micro_mxu8'][0]:.4f} ms, bytes; "
+        f"bucketed product {c3['wgmmas']} wgmmas, {c3['gflop']} GFLOP); "
+        f"M3 plain ms {c3['plain_ms']}; M3 torch.bmm {bmm_ms:.3f} ms, "
+        f"index_add_ {add_ms:.3f} ms; launches {launches}")
     return launches
 
 
@@ -2000,6 +2074,7 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r.get("library_ms"),
+                    **({"ms_int8": r["ms_int8"]} if "ms_int8" in r else {}),
                     "launches_stream": stream_launches[name],
                     "launches_carve": carve_launches[name],
                     "launches_checkpoint": ckpt_launches[name],

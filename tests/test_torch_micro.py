@@ -141,17 +141,127 @@ def test_m2_beyond_the_list_lands_in_the_last_row():
     assert float(pw[:t_m2.NB - 1, 0].sum()) == t_m2.NB - 1
 
 
+@pytest.fixture(scope="module")
+def m3_ref(j_m3):
+    """(inputs, the JAX script's outputs) per (case, nb, mode), each run
+    once under ``pltpu.force_tpu_interpret_mode()``; case None is the
+    script's own inputs, else one of ``EDGE_CASES``."""
+    cache = {}
+
+    def ref(case, nb, mode):
+        if (case, nb, mode) not in cache:
+            npy = (t_m3.inputs(N_SMALL) if case is None else
+                   t_m3.edge_inputs(case, N_SMALL, nb))
+            with pltpu.force_tpu_interpret_mode():
+                out = j_m3.build(nb, mode)(*npy)
+            cache[case, nb, mode] = (npy, [np.asarray(a) for a in out])
+        return cache[case, nb, mode]
+    return ref
+
+
+def _m3_port(npy, nb, mode):
+    args = [torch.from_numpy(a) for a in npy]
+    return [a.numpy() for a in t_m3.build(nb, mode)(*args)]
+
+
+@pytest.mark.parametrize("nb", t_m3.NB_SUPPORTED)
 @pytest.mark.parametrize("mode", ["bf16", "int8", "int8b", "formD", "formD8",
                                   "formDb"])
-def test_m3_plain_matches_jax(j_m3, mode):
-    okey, sdq, lrow, use = t_m3.inputs(N_SMALL)
-    with pltpu.force_tpu_interpret_mode():
-        ref = j_m3.build(t_m3.NB, mode)(okey, sdq, lrow, use)
-    args = [torch.from_numpy(a) for a in (okey, sdq, lrow, use)]
-    psd, pw = t_m3.build(t_m3.NB, mode)(*args)
-    np.testing.assert_array_equal(psd.numpy(), np.asarray(ref[0]))
-    np.testing.assert_array_equal(pw.numpy(), np.asarray(ref[1]))
+def test_m3_plain_matches_jax(m3_ref, mode, nb):
+    npy, ref = m3_ref(None, nb, mode)
+    psd, pw = _m3_port(npy, nb, mode)
+    np.testing.assert_array_equal(psd, ref[0])
+    np.testing.assert_array_equal(pw, ref[1])
     assert t_m3.PRECISION[mode] in t_m3.PRECISIONS
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("case", t_m3.EDGE_CASES)
+def test_m3_edge_cases_match_jax(m3_ref, case, mode):
+    """One offset group, use all zero, sdq at +-127 with a pile of +127 in
+    one cell per tile, lrow outside [0, nb): the port equals the JAX
+    script's kernel, and each case shows what it stresses."""
+    nb = t_m3.NB
+    npy, ref = m3_ref(case, nb, mode)
+    psd, pw = _m3_port(npy, nb, mode)
+    np.testing.assert_array_equal(psd, ref[0])
+    np.testing.assert_array_equal(pw, ref[1])
+    okey, sdq, lrow, use = npy
+    if case == "one_group":
+        assert pw[:, 5 * 64:6 * 64].sum() == pw.sum() > 0
+    elif case == "unused":
+        assert not psd.any() and not pw.any()
+    elif case == "sdq127":
+        # half of each tile's K * 1024 samples land in (row 0, offset 0)
+        pile = 127 * t_m3.K * t_m3.TILE // 2
+        assert (psd[::nb, 0] >= pile - 127 * 40).all()
+        assert np.abs(sdq).min() == 127
+    else:
+        outside = (lrow < 0) | (lrow >= nb)
+        assert outside.any()
+        assert pw.sum() == ((use != 0) & ~outside).sum()
+
+
+@pytest.mark.parametrize("case", (None, *t_m3.EDGE_CASES))
+def test_m3_onehot_bmm_matches_jax(m3_ref, case):
+    """The yardstick's operands (``onehot_operands``), contracted with
+    ``torch.bmm`` in f32 on the CPU, equal the plain version and the JAX
+    script's kernel exactly."""
+    nb = t_m3.NB
+    npy, ref = m3_ref(case, nb, "bf16")
+    args = [torch.from_numpy(a) for a in npy]
+    onehot, vals = t_m3.onehot_operands(*args, nb, dtype=torch.float32)
+    t = N_SMALL // t_m3.TILE
+    assert onehot.shape == (t, 512, t_m3.K * t_m3.TILE)
+    assert vals.shape == (t, t_m3.K * t_m3.TILE, 2 * nb)
+    got = t_m3.from_bmm(torch.bmm(onehot, vals), nb)
+    plain = t_m3.contract_plain(*args, nb)
+    for a, b, r in zip(got, plain, ref):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.numpy(), r)
+
+
+@pytest.mark.parametrize("case", (None, *t_m3.EDGE_CASES))
+def test_m3_wgmma_count_is_the_padded_lists(case):
+    """``mma_steps_plain`` (what the kernel must report per tile) against a
+    recount in numpy: per tile and offset group of 64 rows, the kept
+    samples padded to a multiple of one wgmma's K."""
+    nb = t_m3.NB
+    npy = (t_m3.inputs(N_SMALL, 3) if case is None else
+           t_m3.edge_inputs(case, N_SMALL, nb, 3))
+    okey, sdq, lrow, use = npy
+    kept = (use != 0) & (lrow >= 0) & (lrow < nb)
+    t = N_SMALL // t_m3.TILE
+    args = [torch.from_numpy(a) for a in npy]
+    for prec, step in t_m3.K_STEP.items():
+        want = np.zeros(t, np.int64)
+        for i in range(t):
+            cols = slice(i * t_m3.TILE, (i + 1) * t_m3.TILE)
+            groups = okey[:, cols][kept[:, cols]] // 64
+            counts = np.bincount(groups, minlength=8)
+            want[i] = (-(-counts // step)).sum()
+        steps = torch.full((t,), -1, dtype=torch.int32)
+        t_m3.contract(*args, nb, prec, steps)
+        np.testing.assert_array_equal(steps.numpy(), want)
+        flop = t_m3.bucketed_flop(steps, nb, prec)
+        assert flop == want.sum() * 2 * 64 * 2 * nb * step
+        if case == "one_group":      # one list a tile: 8x fewer than dense
+            dense = kept.reshape(t_m3.K, t, t_m3.TILE).sum((0, 2))
+            assert (want == -(-dense // step)).all()
+
+
+def test_m3_phase_cuts_find_their_places():
+    """``scripts/m3_turns.py`` times M3 by phase from copies of micro.cu cut
+    at fixed lines: each cut must find its line exactly once."""
+    from chad_tsdf_tpu_torch import kernels
+    from chad_tsdf_tpu_torch.scripts import m3_turns
+    with open(os.path.join(kernels.CSRC, "micro.cu")) as fh:
+        src = fh.read()
+    for phase in m3_turns._CUTS:
+        cut = m3_turns.cut_source(src, phase)
+        assert cut != src
+    with pytest.raises(RuntimeError):
+        m3_turns.cut_source(src.replace("wgmma_ss(acc, da +", "x"), "no_mma")
 
 
 def test_m3_precisions_agree_and_reject_bad_args():
@@ -164,12 +274,17 @@ def test_m3_precisions_agree_and_reject_bad_args():
         t_m3.contract(*args, 24, "bf16")
     with pytest.raises(ValueError):
         t_m3.contract(*args, t_m3.NB, "fp8")
+    with pytest.raises(ValueError):     # the kernel's 16-bit group counts
+        t_m3.contract(*(torch.cat([a] * 2) for a in args), t_m3.NB, "bf16")
+    with pytest.raises(ValueError):
+        t_m3.edge_inputs("two_groups", 2048)
 
 
 def test_micro_modules_import_no_jax():
     code = ("import sys; import chad_tsdf_tpu_torch.scripts.micro_mxu8, "
             "chad_tsdf_tpu_torch.scripts.micro_stagea_phases, "
-            "chad_tsdf_tpu_torch.scripts.micro_tile_accum; "
+            "chad_tsdf_tpu_torch.scripts.micro_tile_accum, "
+            "chad_tsdf_tpu_torch.scripts.m3_turns; "
             "assert 'jax' not in sys.modules")
     proc = subprocess.run([sys.executable, "-c", code],
                           env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT,
