@@ -51,6 +51,12 @@ read).  No backend reads the device on the host during an insert:
 ``host_reads`` is 0 under every backend.  :func:`insert_step` settles at
 once.
 
+:func:`insert_steps_scan` inserts one padded cloud ``reps`` times (the
+JAX package's ``lax.scan`` over the insert, what bench.py times).  On CUDA
+the first insert runs eagerly and decides the fallback with one host read;
+the rest replay a captured CUDA graph (:class:`StepGraph`), one graph launch
+each, with K4 and K5 in the graph when the cloud falls back.
+
 The state passed in is consumed: its pool planes are updated in place
 (the JAX package donates them), and the returned state shares them.
 """
@@ -697,10 +703,15 @@ def settle(tail: FallbackTail, state: ActiveMapState, metrics) -> \
     differences, so metrics summed over several clouds stay sums)."""
     if not tail.needed():
         return state
+    return _apply_fallback(tail.make_grids, state, metrics, tail.config)
+
+
+def _apply_fallback(make_grids, state: ActiveMapState, metrics,
+                    config: MapConfig) -> ActiveMapState:
+    """:func:`settle`'s fallback, run unconditionally."""
     n_blocks0 = state.n_blocks
-    s_bkey, s_okey, sd, ovfmask = tail.make_grids()
-    state, extra_new = _fallback(state, s_bkey, s_okey, sd, ovfmask,
-                                 tail.config)
+    s_bkey, s_okey, sd, ovfmask = make_grids()
+    state, extra_new = _fallback(state, s_bkey, s_okey, sd, ovfmask, config)
     metrics["n_new_blocks"] = metrics["n_new_blocks"] + extra_new
     metrics["n_blocks"] = metrics["n_blocks"] + (state.n_blocks - n_blocks0)
     return state
@@ -718,6 +729,16 @@ def insert_step_fused(state: ActiveMapState, points, n_points: int,
     through the sort-based :func:`update_pool`.  Returns (state, metrics,
     tail).
     """
+    state, metrics, tile_ovf, make_grids = _fused_body(
+        state, points, n_points, position, config)
+    return state, metrics, FallbackTail(tile_ovf, make_grids, config)
+
+
+def _fused_body(state: ActiveMapState, points, n_points: int, position,
+                config: MapConfig):
+    """The fused insert without its tail: (state, metrics, tile_ovf,
+    make_grids), the count of uncovered samples and the closure that
+    recomputes the fallback's grids."""
     px, py, pz = points[:, 0], points[:, 1], points[:, 2]
     origin_blocks = state.origin_blocks
     bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
@@ -744,7 +765,7 @@ def insert_step_fused(state: ActiveMapState, points, n_points: int,
         return s_bkey, s_okey, sd, ovfmask
 
     metrics["host_reads"] = 0
-    return state, metrics, FallbackTail(tile_ovf, make_grids, config)
+    return state, metrics, tile_ovf, make_grids
 
 
 def insert_step_tiled(state: ActiveMapState, points, n_points: int,
@@ -755,6 +776,14 @@ def insert_step_tiled(state: ActiveMapState, points, n_points: int,
     :func:`update_pool` when the returned :class:`FallbackTail` is settled,
     as in the fused path; the tail keeps the grids and K4's mask.  Returns
     (state, metrics, tail)."""
+    state, metrics, tile_ovf, make_grids = _tiled_body(
+        state, points, n_points, position, config)
+    return state, metrics, FallbackTail(tile_ovf, make_grids, config)
+
+
+def _tiled_body(state: ActiveMapState, points, n_points: int, position,
+                config: MapConfig):
+    """The tiled insert without its tail, as :func:`_fused_body`."""
     px, py, pz = points[:, 0], points[:, 1], points[:, 2]
     bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
                                              state.origin_blocks, config)
@@ -769,8 +798,7 @@ def insert_step_tiled(state: ActiveMapState, points, n_points: int,
                                        n_valid, samp_overflow, pt_overflow,
                                        config)
     metrics["host_reads"] = 0
-    return state, metrics, FallbackTail(
-        tile_ovf, lambda: (s_bkey, s_okey, sd, ovfmask), config)
+    return state, metrics, tile_ovf, lambda: (s_bkey, s_okey, sd, ovfmask)
 
 
 def _accumulate_impl(config: MapConfig, device: torch.device) -> str:
@@ -780,3 +808,165 @@ def _accumulate_impl(config: MapConfig, device: torch.device) -> str:
     if device.type == "cuda" and config.max_points % tile_accum.TILE == 0:
         return "fused"
     return "xla"
+
+
+# --------------------------------------------------------------------------
+# The same cloud ``reps`` times: the JAX package's ``insert_steps_scan``
+# --------------------------------------------------------------------------
+
+# the fields a replay carries from one insert to the next; the pools are
+# updated in place and origin_blocks never changes
+_CARRIED = ("dir_keys", "dir_slots", "n_blocks", "point_overflow",
+            "sample_overflow", "block_overflow", "touched_overflow",
+            "tile_overflow")
+_FIELDS = tuple(f.name for f in dataclasses.fields(ActiveMapState))
+# captured graphs by (config, points shape, n_points, fallback, device); the
+# oldest goes when a new one would pass this many (each holds a pool copy)
+_MAX_GRAPHS = 4
+_GRAPHS: dict = {}
+
+
+def _insert_decided(state: ActiveMapState, points, n_points: int, position,
+                    config: MapConfig, fallback: bool):
+    """One insert whose fused/tile fallback was decided before it runs: no
+    tail, no pinned copy, no event and no host read, only launches, so a
+    CUDA graph can capture it.  Returns (state, metrics)."""
+    impl = _accumulate_impl(config, state.device)
+    if impl not in ("fused", "tile"):
+        state, metrics, _ = insert_step_deferred(state, points, n_points,
+                                                 position, config)
+        return state, metrics
+    body = _fused_body if impl == "fused" else _tiled_body
+    state, metrics, _, make_grids = body(state, points, n_points, position,
+                                         config)
+    if fallback:
+        state = _apply_fallback(make_grids, state, metrics, config)
+    return state, metrics
+
+
+class StepGraph:
+    """One insert of a fixed-shape cloud, captured as a CUDA graph.
+
+    The graph owns a static copy of every state field, the padded cloud and
+    the scanner position, and captures :func:`_insert_decided` on them.  The
+    pools are updated in place by K3 (and K5); the capture ends by copying
+    the new directory and counters back into the static fields, so each
+    replay is one more insert of the same cloud.  ``launches`` is what the
+    kernel wrappers counted while capturing: each replay launches exactly
+    that (``kernels.LAUNCHES`` counts the capture, not the replays).
+
+    Capture needs every kernel built and every cached buffer (K5's
+    workspace) allocated by an eager insert of the same shapes first;
+    :func:`insert_steps_scan` runs one.  A capture that fails raises.
+    """
+
+    def __init__(self, state: ActiveMapState, points, n_points: int,
+                 position, config: MapConfig, fallback: bool):
+        global STAGE_HOOK
+        from .. import kernels
+        self.n_points = n_points
+        self.config = config
+        self.fallback = fallback
+        self.static = ActiveMapState(
+            **{f: getattr(state, f).clone() for f in _FIELDS})
+        self.points = points.clone()
+        self.position = position.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.LAUNCHES)
+        hook, STAGE_HOOK = STAGE_HOOK, None
+        try:
+            with torch.cuda.graph(self.graph):
+                self._step()
+        finally:
+            STAGE_HOOK = hook
+        self.launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                         if v != before[k]}
+        # K5's cached workspace, kept alive for the graph's pointers even if
+        # a later call grows the cache past it
+        from ..ops import accumulate
+        self._workspace = accumulate._WORKSPACE.get(state.device)
+        self.replays = 0
+
+    def _step(self) -> None:
+        """The captured body: one insert on the static tensors, its
+        directory and counters copied back into them."""
+        st, _ = _insert_decided(self.static, self.points, self.n_points,
+                                self.position, self.config, self.fallback)
+        if (st.pool_sd is not self.static.pool_sd or
+                st.pool_w is not self.static.pool_w):
+            raise RuntimeError("the captured insert did not update the "
+                               "pools in place")
+        for f in _CARRIED:
+            getattr(self.static, f).copy_(getattr(st, f))
+
+    def run(self, state: ActiveMapState, points, position,
+            reps: int) -> ActiveMapState:
+        """``reps`` replays starting from ``state``, whose pools receive the
+        result in place; returns the new state.  Copies in and out, no
+        host read."""
+        for f in _FIELDS:
+            getattr(self.static, f).copy_(getattr(state, f))
+        self.points.copy_(points)
+        self.position.copy_(position)
+        for _ in range(reps):
+            self.graph.replay()
+        self.replays += reps
+        state.pool_sd.copy_(self.static.pool_sd)
+        state.pool_w.copy_(self.static.pool_w)
+        return dataclasses.replace(
+            state, **{f: getattr(self.static, f).clone() for f in _CARRIED})
+
+
+def _use_graph(device: torch.device) -> bool:
+    """Whether :func:`insert_steps_scan` replays a graph: on CUDA."""
+    return device.type == "cuda"
+
+
+def step_graph(state: ActiveMapState, points, n_points: int, position,
+               config: MapConfig, fallback: bool) -> StepGraph:
+    """The cached :class:`StepGraph` of this (config, cloud shape,
+    n_points, fallback, device), captured on first use from ``state``'s
+    shapes."""
+    key = (config, tuple(points.shape), int(n_points), bool(fallback),
+           state.device)
+    g = _GRAPHS.get(key)
+    if g is None:
+        while len(_GRAPHS) >= _MAX_GRAPHS:
+            _GRAPHS.pop(next(iter(_GRAPHS)))
+        g = StepGraph(state, points, n_points, position, config, fallback)
+        _GRAPHS[key] = g
+    return g
+
+
+def insert_steps_scan(state: ActiveMapState, points, n_points: int,
+                      position, config: MapConfig,
+                      reps: int) -> ActiveMapState:
+    """Integrate the same padded cloud ``reps`` times (the JAX package's
+    ``insert_steps_scan``, a ``lax.scan`` over the insert in one dispatch).
+
+    ``state`` is consumed as :func:`insert_step` consumes it; returns the
+    state after ``reps`` inserts, equal bit for bit to a loop of
+    :func:`insert_step`.  On the CPU it is that loop.  On CUDA the first
+    insert runs eagerly and decides the fused/tile fallback with the call's
+    one host read (the count of uncovered samples depends only on the
+    cloud, the position and ``origin_blocks``, so every rep takes the same
+    branch); the other ``reps - 1`` are replays of one captured
+    :class:`StepGraph`, one graph launch each and no host read.
+    """
+    if reps < 0:
+        raise ValueError(f"reps must be >= 0, got {reps}")
+    if not _use_graph(state.device):
+        for _ in range(reps):
+            state, _ = insert_step(state, points, n_points, position, config)
+        return state
+    if reps == 0:
+        return state
+    state, metrics, tail = insert_step_deferred(state, points, n_points,
+                                                position, config)
+    fallback = tail is not None and tail.needed()
+    if fallback:
+        state = _apply_fallback(tail.make_grids, state, metrics, config)
+    if reps == 1:
+        return state
+    g = step_graph(state, points, n_points, position, config, fallback)
+    return g.run(state, points, position, reps - 1)

@@ -39,7 +39,6 @@ import dataclasses
 import json
 import statistics
 import subprocess
-import time
 
 import numpy as np
 import torch
@@ -49,6 +48,7 @@ from .core import integrate
 from .core.map import TSDFMap
 from .core.state import create_state, origin_blocks_for_position
 from .ops import accumulate, fused_integrate, normals, normals_cuda
+from .utils.timing import StageTimer
 
 INT32_MAX = 2**31 - 1
 
@@ -138,29 +138,6 @@ def boundary_inputs(cfg: MapConfig, dev, chunk: int = accumulate.CHUNK,
             torch.from_numpy(payload).to(dev), stats)
 
 
-class Stopwatch:
-    """Marks on CUDA events (device clock) or the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-
-    def mark(self):
-        if self.cuda:
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            self.marks.append(e)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def spans_ms(self):
-        if self.cuda:
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(self.marks,
-                                                      self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
-
-
 def sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -214,31 +191,29 @@ def stage_times(pts: np.ndarray, device: torch.device):
              "fallback flag"]
     runs = []
     for i in range(7):
-        sw = Stopwatch(device)
-        sw.mark()
+        t = StageTimer(device)
         bkey, okey, _ = integrate.point_keys_soa(
             p[:, 0], p[:, 1], p[:, 2], n, st.origin_blocks, cfg)
         sb, so, px, py, pz = integrate.sort_points_soa(
             p[:, 0], p[:, 1], p[:, 2], bkey, okey)
-        sw.mark()
+        t.mark(names[0])
         nx, ny, nz = integrate.estimate_normals_dispatch(
             px, py, pz, sb, so, pos, st.origin_blocks, cfg)
-        sw.mark()
+        t.mark(names[1])
         pk, psd, pw, cnt = fused_integrate.fused_tile_partials(
             px, py, pz, nx, ny, nz, sb, pos, st.origin_blocks * 8,
             nb=cfg.tile_nb, k=cfg.dda_steps, res=cfg.sdf_res,
             trunc=cfg.sdf_trunc, extent=cfg.blocks_per_axis * 8)
-        sw.mark()
+        t.mark(names[2])
         tot = cnt.sum(0, dtype=torch.int32)
         st, _ = integrate.update_pool_tiled(st, pk, psd, pw, tot[1], tot[0],
                                             tot[2], 0, cfg)
-        sw.mark()
+        t.mark(names[3])
         integrate.FallbackTail(tot[1], None, cfg)
-        sw.mark()
+        t.mark(names[4])
         if i >= 2:
-            runs.append(sw.spans_ms())
-    return {k: statistics.median(r[i] for r in runs)
-            for i, k in enumerate(names)}
+            runs.append(dict(t.stages))
+    return {k: statistics.median(r[k] for r in runs) for k in names}
 
 
 def seg_stage_times(pts: np.ndarray, position: np.ndarray,
@@ -250,23 +225,16 @@ def seg_stage_times(pts: np.ndarray, position: np.ndarray,
     m = TSDFMap(config=config, device=device)
     runs = []
     for i in range(7):
-        sw = Stopwatch(device)
-        names = []
-
-        def hook(name):
-            names.append(name)
-            sw.mark()
-
-        integrate.STAGE_HOOK = hook
+        t = StageTimer(device)
+        integrate.STAGE_HOOK = t.mark
         try:
-            sw.mark()
             m.insert(pts, position)
         finally:
             integrate.STAGE_HOOK = None
         if i >= 2:
-            runs.append(sw.spans_ms())
-    return {k: statistics.median(r[j] for r in runs)
-            for j, k in enumerate(names)}
+            runs.append(t.stages)
+    return {k: statistics.median(r[j][1] for r in runs)
+            for j, (k, _) in enumerate(runs[0])}
 
 
 def sorted_cloud(pts: np.ndarray, cfg: MapConfig, device: torch.device,
@@ -309,12 +277,11 @@ def k2_dense_voxels(n: int, segment: int, device: torch.device):
     for name, fn in (("ms", kernel), ("plain_ms", plain)):
         times = []
         for i in range(5):
-            sw = Stopwatch(device)
-            sw.mark()
-            fn()
-            sw.mark()
+            t = StageTimer(device)
+            with t.stage(name):
+                fn()
             if i >= 1:
-                times.append(sw.spans_ms()[0])
+                times.append(t.stages[0][1])
         out[name] = statistics.median(times)
     return out
 

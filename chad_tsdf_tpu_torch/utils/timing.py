@@ -1,0 +1,147 @@
+"""Tracing and profiling — PyTorch port of ``chad_tsdf_tpu/utils/timing.py``.
+
+The reference brackets every pipeline stage with wall-clock timers and
+always-on prints ("mc  calc", "mc  sort", "norm est", "oct  upd", "sub fin",
+"total": reference morton.hpp:76-78, 98-100, normals.hpp:144-146,
+octree.hpp:167-169, submap.hpp:103-105, tsdf.cpp:72-74).  The port's
+insert is a queue of asynchronous launches, so per-stage timing is a
+diagnostic: :class:`StageTimer` brackets stages with CUDA events on the card
+(device milliseconds, read once at :meth:`StageTimer.report`) and with the
+host clock on the CPU, and :func:`profile_insert` runs the sort-based
+pipeline stage by stage in the JAX module's layout.  :func:`trace` wraps
+``torch.profiler`` and writes a Chrome trace; :class:`JsonMetricsSink`
+writes one JSON object per insert.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import tempfile
+import time
+
+import torch
+
+
+class StageTimer:
+    """Named stage times in milliseconds: CUDA events on ``device="cuda"``
+    (the device's own clock; nothing waits until :attr:`stages` or
+    :meth:`report` is read), the host clock on ``device="cpu"``.
+
+    ``stage(name)`` brackets a block; a nested stage ends first and is
+    listed first, as in the JAX timer.  ``mark(name)`` ends a stage named
+    ``name`` here, begun where the previous mark (or the timer) began, for
+    stages whose ends are all that is known (``core.integrate.STAGE_HOOK``).
+    """
+
+    def __init__(self, device="cuda"):
+        self.cuda = torch.device(device).type == "cuda"
+        self._marks: list = []        # (name, start, end) clock readings
+        self._t0 = self._now()
+        self._last = self._t0
+
+    def _now(self):
+        if self.cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def _ms(self, a, b) -> float:
+        if self.cuda:
+            b.synchronize()
+            return a.elapsed_time(b)
+        return (b - a) * 1e3
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sync_on=None):
+        """Time the block as stage ``name``.  ``sync_on`` (a tensor) makes
+        the host wait for the device at the end of the block, as the JAX
+        timer's ``block_until_ready`` does; events need no wait."""
+        t0 = self._now()
+        yield
+        if sync_on is not None and getattr(sync_on, "is_cuda", False):
+            torch.cuda.synchronize(sync_on.device)
+        self._marks.append((name, t0, self._now()))
+
+    def mark(self, name: str) -> None:
+        """End stage ``name`` here; it began at the previous mark."""
+        now = self._now()
+        self._marks.append((name, self._last, now))
+        self._last = now
+
+    @property
+    def stages(self) -> list[tuple[str, float]]:
+        """[(name, ms)] in the order the stages ended."""
+        return [(name, self._ms(a, b)) for name, a, b in self._marks]
+
+    def report(self) -> str:
+        """One line per stage and a ``total`` line (since the timer was
+        made), in the JAX module's layout."""
+        lines = [f"{name:<8} {ms:8.2f}" for name, ms in self.stages]
+        total = self._ms(self._t0, self._now())
+        lines.append(f"{'total':<8} {total:8.2f}")
+        return "\n".join(lines)
+
+
+def profile_insert(state, points, n_points, position, config):
+    """Stage-by-stage timed insert through the sort-based pipeline
+    (diagnostic): ``mc+norm`` (keys, sort, normals, DDA), ``smp sort`` and
+    ``pool upd``.  ``state`` is consumed as ``insert_step`` consumes it.
+
+    Returns (new_state, metrics, report string).
+    """
+    from ..core import integrate
+
+    t = StageTimer(state.device)
+    with t.stage("mc+norm"):
+        batch = integrate.compute_samples(points, n_points, position,
+                                          state.origin_blocks, config)
+    with t.stage("smp sort"):
+        batch = integrate.sort_samples(batch)
+    with t.stage("pool upd"):
+        state, metrics = integrate.update_pool(state, batch, config)
+    return state, metrics, t.report()
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None = None, device=None):
+    """``torch.profiler`` over the block; on exit a Chrome trace
+    (``trace_<pid>_<ns>.json``) is written into ``logdir`` (made if
+    missing; by default ``chad_tsdf_trace`` in the temporary directory).
+    CUDA activity is traced when ``device`` is a CUDA device, or, with no
+    device given, when a card is present.  Yields ``logdir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if logdir is None:
+        logdir = os.path.join(tempfile.gettempdir(), "chad_tsdf_trace")
+    os.makedirs(logdir, exist_ok=True)
+    cuda = (torch.cuda.is_available() if device is None
+            else torch.device(device).type == "cuda")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        yield logdir
+    prof.export_chrome_trace(os.path.join(
+        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class JsonMetricsSink:
+    """Structured metrics log: one JSON object per insert.  Values with an
+    ``item`` method (tensors, numpy scalars) are written as ints: reading
+    them waits for the device, a drain point the caller chose.  Values of a
+    ``TSDFMap.insert`` result (``LazyMetrics``) arrive as Python scalars."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._fh = open(path, "a")
+
+    def write(self, record: dict) -> None:
+        record = {k: (int(v) if hasattr(v, "item") else v)
+                  for k, v in record.items()}
+        record["ts"] = time.time()
+        self._fh.write(json.dumps(record) + "\n")
+        self._fh.flush()
+
+    def close(self):
+        self._fh.close()

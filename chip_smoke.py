@@ -109,7 +109,19 @@ runs, failing with a non-zero exit on the first error:
    none dropped below 0); an N = 4 checkpoint resumed on 2 shards with 2
    more scans into both; ``optimize_poses(mesh=...)`` against the N = 1
    solve; and a world-size-1 NCCL group running the generic insert through
-   the collectives, bit-equal to the in-process exchange.
+   the collectives, bit-equal to the in-process exchange;
+14. ``core.integrate.insert_steps_scan`` replaying a captured CUDA graph:
+   at reps 3 bit-equal to 3 eager ``insert_step``s (pools, directory, slot
+   order and the five counters) on the 2^20-point sphere (K1, K2, K3 in
+   the graph) and on phase 4's 2048-point sparse sphere under ``fused``
+   (K4 and K5 too: the first insert decides the fallback); the launches
+   per replay as captured, and as the profiler names the kernels of 4
+   replays; no synchronising call from ``core/integrate.py`` while
+   replaying; ms per insert through the graph, the eager loop and a
+   synced single, and the device's busy share under replay;
+   ``utils.timing.profile_insert``'s report and a ``trace`` file on the
+   card; ``examples/demo_sphere`` at full size in its own process, its PLY
+   on the r = 5 sphere.
 
 The fused and tile inserts must report ``host_reads`` 0, and the fused
 inserts run once more under ``torch.cuda.set_sync_debug_mode("warn")``:
@@ -130,7 +142,9 @@ each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
 for K4-K5, phase 7 for M1-M3 (and, as ``launches_stream``,
 ``launches_carve``, ``launches_checkpoint`` and ``launches_loop_closure``,
 in the inserts of phases 8, 10, 11 and 12, and as
-``launches_sharded_dense`` and ``launches_sharded_stream`` in phase 13's),
+``launches_sharded_dense`` and ``launches_sharded_stream`` in phase 13's,
+and as ``launches_per_replay_dense`` and ``launches_per_replay_fallback``
+each replay of phase 14's two graphs),
 with its time, its plain
 version's time, the library call's time (or null) and ``bound_ms``: the
 least time the H100 could take for the same work on this run's inputs, the
@@ -1823,6 +1837,198 @@ def run_sharded(tmp):
     return dense_launches, stream_launches
 
 
+# the CUDA symbols each kernel's wrapper launches (the profiler's names)
+KERNEL_SYMBOLS = {
+    "fused_tile_partials": ("fused_tile_kernel",),
+    "estimate_normals": ("normals_combine_kernel",),
+    "merge_partials": ("merge_partials_kernel",),
+    "tile_partials": ("tile_partials_kernel",),
+    "accumulate_segments": ("accumulate_chunks_kernel",),
+}
+GRAPH_FIELDS = ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
+                "point_overflow", "sample_overflow", "block_overflow",
+                "touched_overflow", "tile_overflow")
+
+
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler`` with CUDA activity; returns (the
+    device's kernels by name with their counts, device busy ms, window
+    ms)."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    names = collections.Counter(e.name for e in evs)
+    if not evs:
+        return names, None, None
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    t0 = min(e.time_range.start for e in evs)
+    t1 = max(e.time_range.end for e in evs)
+    return names, busy, (t1 - t0) / 1e3
+
+
+def run_graph(tmp):
+    """Phase 14: ``insert_steps_scan`` replaying a captured CUDA graph,
+    held bit for bit against eager inserts, on the dense sphere and on the
+    2048-point sparse sphere (whose graph holds K4 and K5); its timing and
+    busy share; ``utils.timing`` and ``demo_sphere`` on the card.  Returns
+    the launches per replay of each graph."""
+    from chad_tsdf_tpu_torch import MapConfig, kernels
+    from chad_tsdf_tpu_torch.core import integrate
+    from chad_tsdf_tpu_torch.core.state import (create_state,
+                                                origin_blocks_for_position)
+    from chad_tsdf_tpu_torch.mesh import read_ply
+    from chad_tsdf_tpu_torch.ops import accumulate
+    from chad_tsdf_tpu_torch.utils import timing
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pos = torch.zeros(3, dtype=torch.float32, device=dev)
+    per_replay = {}
+    reps = 3
+    for name, cfg, pts_np in (
+            ("dense", MapConfig(), sphere(N_DENSE, 5.0, 420)),
+            ("fallback", MapConfig(max_points=2048, accumulate_impl="fused"),
+             sphere(2048, 5.0, 7))):
+        pts = torch.from_numpy(pts_np).to(dev)
+        n = pts.shape[0]
+        origin = origin_blocks_for_position(np.zeros(3), cfg)
+        eager = create_state(cfg, origin, dev)
+        for _ in range(reps):
+            eager, _ = integrate.insert_step(eager, pts, n, pos, cfg)
+        integrate._GRAPHS.clear()
+        kernels.reset_launches()
+        scan = integrate.insert_steps_scan(create_state(cfg, origin, dev),
+                                           pts, n, pos, cfg, reps)
+        torch.cuda.synchronize()
+        captured = dict(kernels.LAUNCHES)
+        require(len(integrate._GRAPHS) == 1,
+                f"{name}: {len(integrate._GRAPHS)} graphs captured")
+        g = next(iter(integrate._GRAPHS.values()))
+        require(g.replays == reps - 1, f"{name}: {g.replays} replays")
+        for f in GRAPH_FIELDS:
+            require(torch.equal(getattr(scan, f), getattr(eager, f)),
+                    f"{name}: insert_steps_scan's {f} is not bit-equal to "
+                    f"{reps} eager inserts")
+        require(not accumulate.overflowed(dev),
+                f"{name}: K5 chunk list overflowed")
+        want = ["fused_tile_partials", "estimate_normals", "merge_partials"]
+        if name == "fallback":
+            want += ["tile_partials", "accumulate_segments"]
+        require(g.fallback == (name == "fallback"),
+                f"{name}: fallback decided {g.fallback}")
+        require(g.launches == dict.fromkeys(want, 1),
+                f"{name}: launches per replay {g.launches}, expected one "
+                f"of each of {want}")
+        # the replays alone: kernels by name (one replay each), no
+        # synchronising call from core/integrate.py
+        names, busy, window = profiled(lambda: g.run(scan, pts, pos, 4))
+        seen = {k: sum(c for nm, c in names.items()
+                       if any(s in nm for s in sym)) / 4
+                for k, sym in KERNEL_SYMBOLS.items()}
+        if any(seen.values()):
+            require(all(seen[k] == g.launches.get(k, 0) for k in seen),
+                    f"{name}: the profiler's kernels per replay {seen} "
+                    f"against the captured {g.launches}")
+        mine, _ = integrate_syncs(lambda: g.run(scan, pts, pos, 2))
+        require(not mine, f"{name}: replays synchronised in "
+                          f"core/integrate.py: {mine}")
+        per_replay[name] = dict(g.launches)
+        log(f"phase 14 {name} ({n} points, {cfg.accumulate_impl}): "
+            f"insert_steps_scan at reps {reps} bit-equal to {reps} eager "
+            f"inserts (pools, directory, slot order, the five counters: "
+            f"tile_overflow {int(scan.tile_overflow)}); fallback in the "
+            f"graph {g.fallback}; launches per replay {g.launches} (the "
+            f"profiler's kernels per replay: "
+            f"{seen if any(seen.values()) else 'none seen'}); "
+            f"launch counts of the eager insert + capture {captured}")
+        if name == "dense":
+            # timing: the graph against the eager loop and a synced single
+            st = scan
+            t_reps = 10
+            rows = {"graph": [], "eager": [], "single": []}
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = integrate.insert_steps_scan(st, pts, n, pos, cfg,
+                                                 t_reps)
+                torch.cuda.synchronize()
+                rows["graph"].append((time.perf_counter() - t0) * 1e3 /
+                                     t_reps)
+                t0 = time.perf_counter()
+                for _ in range(t_reps):
+                    st, _ = integrate.insert_step(st, pts, n, pos, cfg)
+                torch.cuda.synchronize()
+                rows["eager"].append((time.perf_counter() - t0) * 1e3 /
+                                     t_reps)
+            for _ in range(5):
+                t0 = time.perf_counter()
+                st, _ = integrate.insert_step(st, pts, n, pos, cfg)
+                torch.cuda.synchronize()
+                rows["single"].append((time.perf_counter() - t0) * 1e3)
+            med = {k: statistics.median(v) for k, v in rows.items()}
+            busy_txt = ("not measured" if busy is None else
+                        f"{busy / 4:.3f} ms of device time per replay in "
+                        f"{window / 4:.3f} ms, busy {busy / window:.1%}")
+            log(f"phase 14 timing (dense, ms per insert, median of 3 "
+                f"rounds of {t_reps}): insert_steps_scan {med['graph']:.3f} "
+                f"{[round(x, 3) for x in rows['graph']]}, eager loop "
+                f"{med['eager']:.3f} {[round(x, 3) for x in rows['eager']]}"
+                f", synced single {med['single']:.3f} (median of 5) -> "
+                f"{N_DENSE / med['graph'] * 1e3:.0f} points/s through the "
+                f"graph; under replay {busy_txt}")
+            del st
+        del eager, scan, g
+        integrate._GRAPHS.clear()
+        torch.cuda.empty_cache()
+
+    # utils.timing on the card
+    cfg = MapConfig()
+    pts = torch.from_numpy(sphere(N_DENSE, 5.0, 420)).to(dev)
+    st = create_state(cfg, origin_blocks_for_position(np.zeros(3), cfg), dev)
+    st, met, report = timing.profile_insert(st, pts, N_DENSE, pos, cfg)
+    stages = [line.split()[0] for line in report.splitlines()]
+    require(stages == ["mc+norm", "smp", "pool", "total"],
+            f"profile_insert's report {report!r}")
+    require(int(met["n_valid_samples"]) > 0, "profile_insert: no samples")
+    trace_dir = os.path.join(tmp, "trace")
+    with timing.trace(trace_dir, device=dev):
+        st, _ = integrate.insert_step(st, pts, N_DENSE, pos, cfg)
+        torch.cuda.synchronize()
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    require(len(traces) == 1 and os.path.getsize(
+        os.path.join(trace_dir, traces[0])) > 0, f"trace wrote {traces}")
+    log(f"phase 14 utils.timing.profile_insert (2^20-point sphere, ms of "
+        f"device time): {' | '.join(report.splitlines())}; trace wrote "
+        f"{traces[0]} ({os.path.getsize(os.path.join(trace_dir, traces[0]))}"
+        f" bytes)")
+    del st, pts
+    torch.cuda.empty_cache()
+
+    # demo_sphere at full size, in its own process
+    ply = os.path.join(tmp, "demo_sphere.ply")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "chad_tsdf_tpu_torch.examples.demo_sphere",
+         "--out", ply], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    require(proc.returncode == 0,
+            f"demo_sphere exited {proc.returncode}: {proc.stderr[-2000:]}")
+    mesh = read_ply(ply)
+    r = np.linalg.norm(mesh.vertices.astype(np.float64), axis=1)
+    require(mesh.n_vertices > 0 and abs(r.mean() - 5.0) < 0.05 and
+            r.std() < 0.05, f"demo_sphere's mesh |v| {r.mean()} +- {r.std()}")
+    lines = [x for x in proc.stdout.splitlines()
+             if x.startswith(("insert:", "save:", "mesh:"))]
+    log(f"phase 14 demo_sphere (1,000,000 points, subprocess "
+        f"{time.perf_counter() - t0:.1f} s): {' | '.join(lines)}")
+    log(f"phase 14 time: {time.perf_counter() - t_phase:.1f} s")
+    return per_replay
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -2055,6 +2261,11 @@ def main() -> int:
         shard_dense, shard_stream = run_sharded(tmp)
     torch.cuda.empty_cache()
 
+    # ---- phase 14: insert_steps_scan as a CUDA graph; utils, examples ----
+    with tempfile.TemporaryDirectory() as tmp:
+        graph_launches = run_graph(tmp)
+    torch.cuda.empty_cache()
+
     # ---- result ----
     launches = dict(dense_launches,
                     tile_partials=sparse_launches["tile_partials"],
@@ -2080,7 +2291,11 @@ def main() -> int:
                     "launches_checkpoint": ckpt_launches[name],
                     "launches_loop_closure": loop_launches[name],
                     "launches_sharded_dense": shard_dense[name],
-                    "launches_sharded_stream": shard_stream[name]})
+                    "launches_sharded_stream": shard_stream[name],
+                    "launches_per_replay_dense":
+                        graph_launches["dense"].get(name, 0),
+                    "launches_per_replay_fallback":
+                        graph_launches["fallback"].get(name, 0)})
     log(f"phase 2 details: {json.dumps(results)}")
     print(json.dumps({"kernels": out}))
     print(smi)

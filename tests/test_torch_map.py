@@ -155,16 +155,18 @@ def test_unported_options_raise(tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing the port — the KITTI module, the stream and mesh-scale
-    scripts, the mesh modules, carving, checkpoints and the pose graph
-    too — then a rotating two-scan packed ``seg`` stream with carving,
-    ``stats()``, a save through device marching cubes with the ``.grid``
-    dump, ``leaf_arrays``, ``raycast``, ``merge``, a deferred ``fused``
-    insert, a checkpoint saved and loaded, a loop closure, and a 2-shard
-    ``ShardedTSDFMap`` insert on the CPU (the DAG built through the native
-    runtime where g++ builds it), loads
-    neither jax nor any module of the JAX package.  It runs in a
-    temporary directory: ``save`` writes ``hashgrid.grid`` there."""
+    """Importing the port — the KITTI module, the stream, mesh-scale,
+    bench and GPU-equality scripts, ``utils``, the examples, the mesh
+    modules, carving, checkpoints and the pose graph too — then a rotating
+    two-scan packed ``seg`` stream with carving, ``stats()``, a save
+    through device marching cubes with the ``.grid`` dump,
+    ``leaf_arrays``, ``raycast``, ``merge``, a deferred ``fused`` insert, a
+    checkpoint saved and loaded, a loop closure, ``insert_steps_scan`` and
+    ``utils.timing.profile_insert``, and a 2-shard ``ShardedTSDFMap``
+    insert on the CPU (the DAG built through the native runtime where g++
+    builds it), loads neither jax nor any module of the JAX package.  It
+    runs in a temporary directory: ``save`` writes ``hashgrid.grid``
+    there."""
     code = """
 import os, sys
 import numpy as np
@@ -174,6 +176,13 @@ import chad_tsdf_tpu_torch.io.kitti
 import chad_tsdf_tpu_torch.scripts.kitti_stream
 import chad_tsdf_tpu_torch.scripts.mesh_scale
 import chad_tsdf_tpu_torch.profile_insert
+import chad_tsdf_tpu_torch.utils, chad_tsdf_tpu_torch.utils.timing
+import chad_tsdf_tpu_torch.examples.demo_sphere
+import chad_tsdf_tpu_torch.examples.demo_kitti
+import chad_tsdf_tpu_torch.examples.demo_loop_closure
+import chad_tsdf_tpu_torch.examples.demo_carve
+import chad_tsdf_tpu_torch.scripts.bench
+import chad_tsdf_tpu_torch.scripts.gpu_equality
 import chad_tsdf_tpu_torch.mesh.device_mc, chad_tsdf_tpu_torch.mesh.grid
 import chad_tsdf_tpu_torch.mesh.optimize, chad_tsdf_tpu_torch.mesh.rmse
 import chad_tsdf_tpu_torch.core.carve, chad_tsdf_tpu_torch.io.checkpoint
@@ -210,6 +219,18 @@ loop = np.eye(4)
 loop[:3, 3] = shift
 assert m.optimize_loop_closures(loop_edges=[(0, 1, loop, 10.0)])[
     "iterations"] > 0
+from chad_tsdf_tpu_torch.core import integrate
+from chad_tsdf_tpu_torch.core.state import create_state
+from chad_tsdf_tpu_torch.utils import StageTimer, profile_insert
+import torch
+t = StageTimer("cpu")
+with t.stage("scan"):
+    st = integrate.insert_steps_scan(create_state(fused, device="cpu"),
+                                     torch.from_numpy(pts), 4096,
+                                     torch.zeros(3), fused, 2)
+st, _, report = profile_insert(st, torch.from_numpy(pts), 4096,
+                               torch.zeros(3), fused)
+assert int(st.n_blocks) > 0 and report.splitlines()[-1].startswith("total")
 from chad_tsdf_tpu_torch.parallel import ShardedTSDFMap, make_mesh
 s = ShardedTSDFMap(config=MapConfig(max_points=2048, block_capacity=4096,
                                     touched_capacity=4096,
