@@ -21,6 +21,9 @@ Morton-range shards, on one card or several, or across processes.
 
 from .config import MapConfig
 
+# the JAX package's version (chad_tsdf_tpu/__init__.py): the port follows it
+__version__ = "0.1.0"
+
 __all__ = ["TSDFMap", "MapConfig"]
 
 

@@ -49,13 +49,14 @@ from . import integrate
 from .state import INT32_MAX, ActiveMapState
 
 
-def carve_sample_keys(px, py, pz, n_points: int, position, origin_blocks,
+def carve_sample_keys(px, py, pz, n_points, position, origin_blocks,
                       config: MapConfig):
     """Voxel keys of the free-space samples of one (padded) cloud.
 
     Returns flat ``(bkey, okey)`` i32[carve_steps * ceil(N / sub)], sample
     ``i`` of ray ``j`` at ``i * ceil(N / sub) + j``, with INT32_MAX marking
-    invalid slots (padding, samples beyond ``range - trunc``, samples
+    invalid slots (padding: rows from ``n_points``, an int or an i32[]
+    tensor on the points' device; samples beyond ``range - trunc``; samples
     outside the local extent).
     """
     sub = config.carve_subsample
@@ -105,7 +106,7 @@ def carve_sample_keys(px, py, pz, n_points: int, position, origin_blocks,
     return bkey.reshape(-1), okey.reshape(-1)
 
 
-def carve_entries(points, n_points: int, position, origin_blocks,
+def carve_entries(points, n_points, position, origin_blocks,
                   config: MapConfig):
     """One cloud's free-space samples as one entry per voxel (steps 1-2
     of the module docstring).  Returns ``(e_b, e_o, e_c, n_valid)``: an
@@ -182,7 +183,7 @@ def apply_entries(state: ActiveMapState, e_b, e_o, e_c, n_valid, flags,
     return state, metrics
 
 
-def carve_step_impl(state: ActiveMapState, points, n_points: int, position,
+def carve_step_impl(state: ActiveMapState, points, n_points, position,
                     config: MapConfig):
     """Accumulate one cloud's free-space evidence into the pool, in place.
 
@@ -200,14 +201,14 @@ def carve_step_impl(state: ActiveMapState, points, n_points: int, position,
                          config)
 
 
-def carve_step(state: ActiveMapState, points, n_points: int, position,
+def carve_step(state: ActiveMapState, points, n_points, position,
                config: MapConfig):
     """:func:`carve_step_impl` (the pool is updated in place, as the JAX
     package's jitted step donates it)."""
     return carve_step_impl(state, points, n_points, position, config)
 
 
-def carve_step_packed(state: ActiveMapState, qpoints, n_points: int,
+def carve_step_packed(state: ActiveMapState, qpoints, n_points,
                       position, config: MapConfig):
     """Packed-ingest carve: the same i16 fixed-point cloud as
     ``integrate.insert_step_packed``, decoded the same way."""

@@ -1,0 +1,192 @@
+"""One insert as one CUDA graph replay — the JAX package's one donated
+``jax.jit`` executable per chunk of ``TSDFMap.insert`` (``insert_step`` or
+``insert_step_packed``, then ``carve_step`` or ``carve_step_packed``;
+``chad_tsdf_tpu/core/map.py:152-180``).
+
+:class:`InsertGraph` captures, on a state it is given and on its own
+static input buffers (the cloud's f32 points, as many rows as the scan
+has, in a buffer of the bucket's size; the scanner position; the point
+count as an i32[] tensor):
+
+1. the padding (rows from the count on are zero, as the host pads them)
+   and, under ``MapConfig.packed_ingest``, ``pack_points`` and the unpack,
+   on the device and bit-equal to the host's (``integrate.
+   pack_points_device``);
+2. the insert of ``core/integrate.py`` ``insert_body`` under the config's
+   backend, its directory and counters written back into the state (the
+   pools are updated in place);
+3. under ``fused`` and ``tile``, the fallback as a CUDA conditional IF node
+   on the count of uncovered samples (``ops/conditional.py``): a one-thread
+   kernel sets the node's handle on the device, and the node's body (the
+   sample grids, K4, the sort-based ``update_pool`` through K5) runs only
+   where the count is positive — ``lax.cond`` itself, with no host read;
+4. the carve (``core/carve.py``), when the map carves;
+5. the metrics into a static i32 vector.
+
+``TSDFMap.insert`` keeps one per (dispatched config, point bucket) on the
+map's own active state: a scan is one host-to-device copy of its points
+into the input buffer and one replay, with no copy of the state in or
+out and no padding or packing on the host.
+``insert_steps_scan`` keeps one per (config, cloud shape) on a copy of
+the state it is given.
+
+Before capture, :meth:`InsertGraph.warm` runs the same insert eagerly on
+the same buffers, so every kernel is built, every lazily loaded module
+loaded and K5's cached workspace allocated; its fallback runs
+unconditionally there, which changes nothing when no sample needs it.
+The warm insert is a real insert: its result stays.  A capture that
+fails raises; nothing falls back to the eager insert.  The stage hook of
+``profile_insert`` is off while capturing.  ``kernels.LAUNCHES`` counts
+the launches of the warm insert and the capture, never a replay:
+``launches`` holds what one replay launches outside the IF node and
+``body_launches`` what its body launches when the count is positive.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..config import MapConfig
+from ..ops import accumulate, conditional
+from . import carve, integrate
+from .state import ActiveMapState
+
+INSERT_KEYS = ("n_valid_samples", "n_touched_blocks", "n_new_blocks",
+               "n_blocks")
+CARVE_KEYS = ("n_carve_samples", "n_carved_voxels", "n_carve_dropped")
+
+
+def use_graph(device: torch.device) -> bool:
+    """Whether inserts on ``device`` replay graphs: on CUDA."""
+    return device.type == "cuda"
+
+
+def _launched(before: dict) -> dict:
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+
+
+class InsertGraph:
+    """One insert of a ``bucket``-point cloud on ``state`` (module
+    docstring); ``carve_config`` carves after it (the map's config, as
+    ``TSDFMap.insert`` carves), None does not.  ``nbytes`` is what the
+    graph holds on the device: ``owned_bytes`` (a state copy it owns), its
+    buffers and, once captured, the memory its capture reserved."""
+
+    def __init__(self, state: ActiveMapState, config: MapConfig,
+                 bucket: int, packed: bool = False,
+                 carve_config: MapConfig | None = None,
+                 owned_bytes: int = 0):
+        dev = state.device
+        self.state = state
+        self.config = config
+        self.packed = packed
+        self.carve_config = carve_config
+        self.points = torch.zeros((bucket, 3), dtype=torch.float32,
+                                  device=dev)
+        self.position = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.n_points = torch.zeros((), dtype=torch.int32, device=dev)
+        self.keys = INSERT_KEYS + (CARVE_KEYS if carve_config else ())
+        self.out = torch.zeros(len(self.keys), dtype=torch.int32, device=dev)
+        self.graph = None
+        self.launches: dict = {}
+        self.body_launches: dict = {}
+        self.replays = 0
+        self.nbytes = owned_bytes + sum(
+            t.nbytes for t in (self.points, self.position, self.n_points,
+                               self.out))
+        self._pool = None
+        self._workspace = None
+
+    def load(self, points, position, n_points) -> None:
+        """Copy the next cloud's f32 points (numpy or a tensor, at most the
+        bucket's rows; rows from ``n_points`` on count as padding), the
+        scanner position and the point count into the input buffers.  A
+        copy from host memory is queued without waiting for the stream
+        (pageable memory is staged at once)."""
+        self.points[:points.shape[0]].copy_(torch.as_tensor(points),
+                                             non_blocking=True)
+        self.position.copy_(torch.as_tensor(position), non_blocking=True)
+        if isinstance(n_points, torch.Tensor):
+            self.n_points.copy_(n_points)
+        else:
+            self.n_points.fill_(int(n_points))
+
+    def _step(self, eager: bool) -> None:
+        cfg = self.config
+        st = self.state
+        rows = torch.arange(self.points.shape[0], dtype=torch.int32,
+                            device=self.points.device)
+        pts = torch.where((rows < self.n_points)[:, None], self.points, 0.0)
+        if self.packed:
+            pts = integrate.unpack_points(integrate.pack_points_device(
+                pts, self.position, cfg.sdf_res), self.position, cfg)
+        new, met, tile_ovf, make_grids = integrate.insert_body(
+            st, pts, self.n_points, self.position, cfg)
+        integrate.write_back(st, new)
+        n_ins = len(INSERT_KEYS)
+        self.out[:n_ins].copy_(torch.stack([met[k] for k in INSERT_KEYS]))
+        if tile_ovf is not None:
+            def fallback():
+                before = dict(kernels.LAUNCHES)
+                grown = {"n_new_blocks": self.out[2], "n_blocks": self.out[3]}
+                fb = integrate._apply_fallback(make_grids, st, grown, cfg)
+                integrate.write_back(st, fb)
+                self.out[2:4].copy_(torch.stack([grown["n_new_blocks"],
+                                                 grown["n_blocks"]]))
+                self.body_launches = _launched(before)
+            if eager:
+                fallback()
+            else:
+                conditional.if_positive(tile_ovf, fallback, self._pool)
+        if self.carve_config is not None:
+            _, cm = carve.carve_step(st, pts, self.n_points, self.position,
+                                     self.carve_config)
+            self.out[n_ins:].copy_(torch.stack([cm[k] for k in CARVE_KEYS]))
+
+    def metrics(self) -> dict:
+        """The last insert's metrics as device scalars of a copy of the
+        metric vector (the next replay overwrites the vector, not them)."""
+        vals = self.out.clone()
+        out = {k: vals[i] for i, k in enumerate(self.keys)}
+        out["host_reads"] = 0
+        return out
+
+    def warm(self) -> dict:
+        """The insert, eagerly on the graph's buffers (module docstring);
+        returns its metrics."""
+        self._step(eager=True)
+        return self.metrics()
+
+    def capture(self) -> None:
+        """Capture the insert; raises if the capture fails."""
+        dev = self.state.device
+        cuda = dev.type == "cuda"
+        if cuda:
+            self._pool = torch.cuda.MemPool()
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.LAUNCHES)
+        hook, integrate.STAGE_HOOK = integrate.STAGE_HOOK, None
+        try:
+            with torch.cuda.graph(graph):
+                self._step(eager=False)
+        finally:
+            integrate.STAGE_HOOK = hook
+        launched = _launched(before)
+        self.launches = {k: v - self.body_launches.get(k, 0)
+                         for k, v in launched.items()
+                         if v != self.body_launches.get(k, 0)}
+        self.graph = graph
+        if cuda:
+            self.nbytes += torch.cuda.memory_reserved(dev) - reserved
+            # K5's cached workspace, alive for the graph's pointers even if
+            # a later call grows the cache past it
+            self._workspace = accumulate._WORKSPACE.get(dev)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1

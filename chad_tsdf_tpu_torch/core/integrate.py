@@ -43,7 +43,10 @@ JAX package branches on a device value (``lax.cond`` / ``lax.switch``), the
 port either computes both ways unconditionally (the directory rebuild is
 one sort of <= block_capacity + touched_capacity keys), sizes the work
 statically and masks (K3's and K5's grids), or, for the fused and tile
-paths' fallback, defers the branch: :func:`insert_step_deferred` returns
+paths' fallback, leaves the branch to the caller (:func:`insert_body`).
+In a CUDA graph (``core/graph.py``, what ``TSDFMap.insert`` replays on the
+card) the branch is an IF node decided on the device
+(``ops/conditional.py``).  Eagerly, :func:`insert_step_deferred` returns
 the insert's :class:`FallbackTail`, which copies the count of uncovered
 samples into pinned host memory behind an event and runs the fallback
 only when the caller settles it (``TSDFMap`` does at its next insert or
@@ -52,10 +55,8 @@ read).  No backend reads the device on the host during an insert:
 once.
 
 :func:`insert_steps_scan` inserts one padded cloud ``reps`` times (the
-JAX package's ``lax.scan`` over the insert, what bench.py times).  On CUDA
-the first insert runs eagerly and decides the fallback with one host read;
-the rest replay a captured CUDA graph (:class:`StepGraph`), one graph launch
-each, with K4 and K5 in the graph when the cloud falls back.
+JAX package's ``lax.scan`` over the insert, what bench.py times): on CUDA
+as replays of one cached graph, one graph launch each, with no host read.
 
 The state passed in is consumed: its pool planes are updated in place
 (the JAX package donates them), and the returned state shares them.
@@ -63,6 +64,7 @@ The state passed in is consumed: its pool planes are updated in place
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 from typing import NamedTuple
@@ -74,7 +76,7 @@ from ..config import MapConfig
 
 from ..ops import (accumulate, dda, fused_integrate, morton, normals,
                    normals_cuda, segops, tile_accum)
-from .state import INT32_MAX, ActiveMapState
+from .state import INT32_MAX, ActiveMapState, clone_state, state_nbytes
 
 SD_QUANT = tile_accum.SD_QUANT
 
@@ -112,9 +114,10 @@ def _zero(device):
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
-def point_keys_soa(px, py, pz, n_points: int, origin_blocks,
+def point_keys_soa(px, py, pz, n_points, origin_blocks,
                    config: MapConfig):
-    """Local Morton keys per point; padding and out-of-extent points get
+    """Local Morton keys per point; padding (rows from ``n_points``, an int
+    or an i32[] tensor on the points' device) and out-of-extent points get
     INT32_MAX keys.  Returns (bkey, okey, pt_overflow)."""
     n = px.shape[0]
     extent = config.blocks_per_axis * 8
@@ -194,7 +197,7 @@ def compute_sample_grids_soa(px, py, pz, sb, so, position, origin_blocks,
                         config)
 
 
-def compute_samples(points, n_points: int, position, origin_blocks,
+def compute_samples(points, n_points, position, origin_blocks,
                     config: MapConfig) -> SampleBatch:
     """Morton sort + normals + DDA: points -> flat packed samples."""
     bkey, okey, pt_overflow = point_keys_soa(
@@ -424,41 +427,60 @@ def update_pool_tiled(state: ActiveMapState, pkeys, psd, pw, tile_ovf,
     return new_state, metrics
 
 
-def insert_step_deferred(state: ActiveMapState, points, n_points: int,
-                         position, config: MapConfig):
+def insert_body(state: ActiveMapState, points, n_points, position,
+                config: MapConfig):
     """Integrate one padded point cloud into the active map, leaving the
     fused and tile paths' fallback to the caller.
 
     points: f32[N, 3] world points on the state's device, padded;
-    n_points: number of valid rows; position: f32[3] scanner position.
-    Returns (new_state, metrics dict of device scalars, tail): ``tail`` is
-    None, or the :class:`FallbackTail` that must be settled
-    (:func:`settle`) before anything else reads or updates the state.
+    n_points: the number of valid rows, an int or an i32[] tensor on the
+    state's device (a CUDA graph replays with a new count in the same
+    tensor); position: f32[3] scanner position.  Returns (new_state,
+    metrics dict of device scalars, tile_ovf, make_grids): under ``fused``
+    and ``tile`` the count of samples no tile's block list holds and the
+    closure that recomputes the fallback's grids (:func:`_apply_fallback`
+    runs it where the count is positive), under the other backends None
+    and None.
     """
-    _stage("host prep + upload")
     impl = _accumulate_impl(config, state.device)
     if impl == "fused":
-        return insert_step_fused(state, points, n_points, position, config)
+        return _fused_body(state, points, n_points, position, config)
     if impl == "tile":
-        return insert_step_tiled(state, points, n_points, position, config)
+        return _tiled_body(state, points, n_points, position, config)
     if impl in ("pallas", "xla"):
         # global sample sort; update_pool picks K5 or the scatter form
         batch = compute_samples(points, n_points, position,
                                 state.origin_blocks, config)
         state, metrics = update_pool(state, sort_samples(batch), config)
         metrics["host_reads"] = 0
-        return state, metrics, None
+        return state, metrics, None, None
     if impl == "seg":
         state, metrics = insert_step_sparse_seg(state, points, n_points,
                                                 position, config)
-        return state, metrics, None
+        return state, metrics, None, None
     raise NotImplementedError(
-        f"accumulate_impl={impl!r} is not ported to PyTorch yet "
-        "(see ROADMAP.md); use 'auto', 'fused', 'tile', 'pallas', 'xla' or "
+        f"accumulate_impl={impl!r} is not ported to PyTorch and is not to "
+        "be ported (ROADMAP.md: the JAX package keeps it as its previous "
+        "tiling approach); use 'auto', 'fused', 'tile', 'pallas', 'xla' or "
         "'seg'")
 
 
-def insert_step(state: ActiveMapState, points, n_points: int, position,
+def insert_step_deferred(state: ActiveMapState, points, n_points,
+                         position, config: MapConfig):
+    """:func:`insert_body` with the fused and tile paths' fallback
+    deferred.  Returns (new_state, metrics dict of device scalars, tail):
+    ``tail`` is None, or the :class:`FallbackTail` that must be settled
+    (:func:`settle`) before anything else reads or updates the state.
+    """
+    _stage("host prep + upload")
+    state, metrics, tile_ovf, make_grids = insert_body(
+        state, points, n_points, position, config)
+    tail = None if tile_ovf is None else \
+        FallbackTail(tile_ovf, make_grids, config)
+    return state, metrics, tail
+
+
+def insert_step(state: ActiveMapState, points, n_points, position,
                 config: MapConfig):
     """:func:`insert_step_deferred`, settled at once: the fused and tile
     paths wait here for their count of uncovered samples.  Returns
@@ -485,7 +507,18 @@ def pack_points(points: np.ndarray, position: np.ndarray,
     return q.astype(np.int16)
 
 
-def insert_step_packed(state: ActiveMapState, qpoints, n_points: int,
+def pack_points_device(points, position, sdf_res: float):
+    """:func:`pack_points` on the points' device, bit-equal to it: the same
+    f64 subtraction and division, round-half-even and clip.  What the CUDA
+    graph of a packed-ingest insert runs (``core/graph.py``), where the
+    host's f64 numpy pass would cost more than the bytes it saves."""
+    step = sdf_res / 8.0
+    q = points.to(torch.float64) - position.to(torch.float64)
+    q = torch.clamp(torch.round(q / step), -32767, 32767)
+    return q.to(torch.int16)
+
+
+def insert_step_packed(state: ActiveMapState, qpoints, n_points,
                        position, config: MapConfig):
     """Packed-ingest insert (``MapConfig.packed_ingest``): ``qpoints`` is
     i16[N, 3] from :func:`pack_points`, half the bytes of the f32 cloud on
@@ -501,7 +534,7 @@ def unpack_points(qpoints, position, config: MapConfig):
     return qpoints.to(torch.float32) * step + position[None, :]
 
 
-def sparse_seg_entry_stream(points, n_points: int, position, origin_blocks,
+def sparse_seg_entry_stream(points, n_points, position, origin_blocks,
                             config: MapConfig):
     """Sparse-insert front half: one entry per UNIQUE VOXEL of one cloud.
 
@@ -611,7 +644,7 @@ def seg_entries_update(state: ActiveMapState, pool_sd, pool_w, e_b, e_okey,
             block_overflow, touched_overflow)
 
 
-def insert_step_sparse_seg(state: ActiveMapState, points, n_points: int,
+def insert_step_sparse_seg(state: ActiveMapState, points, n_points,
                            position, config: MapConfig):
     """Sparse-cloud insert: voxel-sorted segment sums, then a scatter of
     one entry per unique voxel — no tiles, no fallback, ``tile_overflow``
@@ -717,7 +750,7 @@ def _apply_fallback(make_grids, state: ActiveMapState, metrics,
     return state
 
 
-def insert_step_fused(state: ActiveMapState, points, n_points: int,
+def insert_step_fused(state: ActiveMapState, points, n_points,
                       position, config: MapConfig):
     """Fused insert: Morton point sort -> normals -> K1 (DDA + signed
     distance + per-tile partial rows) -> K3 merge.
@@ -734,7 +767,7 @@ def insert_step_fused(state: ActiveMapState, points, n_points: int,
     return state, metrics, FallbackTail(tile_ovf, make_grids, config)
 
 
-def _fused_body(state: ActiveMapState, points, n_points: int, position,
+def _fused_body(state: ActiveMapState, points, n_points, position,
                 config: MapConfig):
     """The fused insert without its tail: (state, metrics, tile_ovf,
     make_grids), the count of uncovered samples and the closure that
@@ -768,7 +801,7 @@ def _fused_body(state: ActiveMapState, points, n_points: int, position,
     return state, metrics, tile_ovf, make_grids
 
 
-def insert_step_tiled(state: ActiveMapState, points, n_points: int,
+def insert_step_tiled(state: ActiveMapState, points, n_points,
                       position, config: MapConfig):
     """Tiled insert: Morton point sort -> normals -> DDA sample grids -> K4
     per-tile partial rows -> K3 merge; no global sample sort.  Samples
@@ -781,7 +814,7 @@ def insert_step_tiled(state: ActiveMapState, points, n_points: int,
     return state, metrics, FallbackTail(tile_ovf, make_grids, config)
 
 
-def _tiled_body(state: ActiveMapState, points, n_points: int, position,
+def _tiled_body(state: ActiveMapState, points, n_points, position,
                 config: MapConfig):
     """The tiled insert without its tail, as :func:`_fused_body`."""
     px, py, pz = points[:, 0], points[:, 1], points[:, 2]
@@ -814,159 +847,123 @@ def _accumulate_impl(config: MapConfig, device: torch.device) -> str:
 # The same cloud ``reps`` times: the JAX package's ``insert_steps_scan``
 # --------------------------------------------------------------------------
 
-# the fields a replay carries from one insert to the next; the pools are
+# the fields an insert carries from one insert to the next; the pools are
 # updated in place and origin_blocks never changes
 _CARRIED = ("dir_keys", "dir_slots", "n_blocks", "point_overflow",
             "sample_overflow", "block_overflow", "touched_overflow",
             "tile_overflow")
 _FIELDS = tuple(f.name for f in dataclasses.fields(ActiveMapState))
-# captured graphs by (config, points shape, n_points, fallback, device); the
-# oldest goes when a new one would pass this many (each holds a pool copy)
-_MAX_GRAPHS = 4
-_GRAPHS: dict = {}
+# the device bytes the graphs of one cache may hold (insert_steps_scan's:
+# a state copy and its private memory pools each; a TSDFMap's: the pools):
+# the least recently used go once a new one takes them past this, the
+# newest always stays.  A dense 2^20-point fused graph holds 1.56 GB of
+# pools on the H100
+MAX_GRAPH_BYTES = 4 << 30
 
 
-def _insert_decided(state: ActiveMapState, points, n_points: int, position,
-                    config: MapConfig, fallback: bool):
-    """One insert whose fused/tile fallback was decided before it runs: no
-    tail, no pinned copy, no event and no host read, only launches, so a
-    CUDA graph can capture it.  Returns (state, metrics)."""
-    impl = _accumulate_impl(config, state.device)
-    if impl not in ("fused", "tile"):
-        state, metrics, _ = insert_step_deferred(state, points, n_points,
-                                                 position, config)
-        return state, metrics
-    body = _fused_body if impl == "fused" else _tiled_body
-    state, metrics, _, make_grids = body(state, points, n_points, position,
-                                         config)
-    if fallback:
-        state = _apply_fallback(make_grids, state, metrics, config)
-    return state, metrics
+def write_back(static: ActiveMapState, state: ActiveMapState) -> None:
+    """Copy an insert's result into the state it started from, in place:
+    the pools must have been updated in place (the JAX package donates
+    them), the directory and the counters are copied.  A CUDA graph
+    captured on ``static`` then carries one insert into the next."""
+    if (state.pool_sd is not static.pool_sd or
+            state.pool_w is not static.pool_w):
+        raise RuntimeError("the insert did not update the pools in place")
+    for f in _CARRIED:
+        src, dst = getattr(state, f), getattr(static, f)
+        if src is not dst:
+            dst.copy_(src)
 
 
-class StepGraph:
-    """One insert of a fixed-shape cloud, captured as a CUDA graph.
+class GraphCache:
+    """Captured graphs by key, bounded by the device bytes they hold (each
+    graph's ``nbytes``): when a new graph takes the total past
+    ``max_bytes``, the least recently used go, never the newest."""
 
-    The graph owns a static copy of every state field, the padded cloud and
-    the scanner position, and captures :func:`_insert_decided` on them.  The
-    pools are updated in place by K3 (and K5); the capture ends by copying
-    the new directory and counters back into the static fields, so each
-    replay is one more insert of the same cloud.  ``launches`` is what the
-    kernel wrappers counted while capturing: each replay launches exactly
-    that (``kernels.LAUNCHES`` counts the capture, not the replays).
+    def __init__(self, max_bytes: int):
+        self.max_bytes = max_bytes
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
 
-    Capture needs every kernel built and every cached buffer (K5's
-    workspace) allocated by an eager insert of the same shapes first;
-    :func:`insert_steps_scan` runs one.  A capture that fails raises.
-    """
+    def get(self, key):
+        g = self._graphs.get(key)
+        if g is not None:
+            self._graphs.move_to_end(key)
+        return g
 
-    def __init__(self, state: ActiveMapState, points, n_points: int,
-                 position, config: MapConfig, fallback: bool):
-        global STAGE_HOOK
-        from .. import kernels
-        self.n_points = n_points
-        self.config = config
-        self.fallback = fallback
-        self.static = ActiveMapState(
-            **{f: getattr(state, f).clone() for f in _FIELDS})
-        self.points = points.clone()
-        self.position = position.clone()
-        self.graph = torch.cuda.CUDAGraph()
-        before = dict(kernels.LAUNCHES)
-        hook, STAGE_HOOK = STAGE_HOOK, None
-        try:
-            with torch.cuda.graph(self.graph):
-                self._step()
-        finally:
-            STAGE_HOOK = hook
-        self.launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
-                         if v != before[k]}
-        # K5's cached workspace, kept alive for the graph's pointers even if
-        # a later call grows the cache past it
-        from ..ops import accumulate
-        self._workspace = accumulate._WORKSPACE.get(state.device)
-        self.replays = 0
+    def put(self, key, g) -> None:
+        self._graphs[key] = g
+        self._graphs.move_to_end(key)
+        while len(self._graphs) > 1 and self.nbytes() > self.max_bytes:
+            self._graphs.popitem(last=False)
 
-    def _step(self) -> None:
-        """The captured body: one insert on the static tensors, its
-        directory and counters copied back into them."""
-        st, _ = _insert_decided(self.static, self.points, self.n_points,
-                                self.position, self.config, self.fallback)
-        if (st.pool_sd is not self.static.pool_sd or
-                st.pool_w is not self.static.pool_w):
-            raise RuntimeError("the captured insert did not update the "
-                               "pools in place")
-        for f in _CARRIED:
-            getattr(self.static, f).copy_(getattr(st, f))
+    def nbytes(self) -> int:
+        return sum(g.nbytes for g in self._graphs.values())
 
-    def run(self, state: ActiveMapState, points, position,
-            reps: int) -> ActiveMapState:
-        """``reps`` replays starting from ``state``, whose pools receive the
-        result in place; returns the new state.  Copies in and out, no
-        host read."""
-        for f in _FIELDS:
-            getattr(self.static, f).copy_(getattr(state, f))
-        self.points.copy_(points)
-        self.position.copy_(position)
-        for _ in range(reps):
-            self.graph.replay()
-        self.replays += reps
-        state.pool_sd.copy_(self.static.pool_sd)
-        state.pool_w.copy_(self.static.pool_w)
-        return dataclasses.replace(
-            state, **{f: getattr(self.static, f).clone() for f in _CARRIED})
+    def values(self):
+        return list(self._graphs.values())
+
+    def clear(self) -> None:
+        self._graphs.clear()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
 
 
-def _use_graph(device: torch.device) -> bool:
-    """Whether :func:`insert_steps_scan` replays a graph: on CUDA."""
-    return device.type == "cuda"
+_GRAPHS = GraphCache(MAX_GRAPH_BYTES)
 
 
-def step_graph(state: ActiveMapState, points, n_points: int, position,
-               config: MapConfig, fallback: bool) -> StepGraph:
-    """The cached :class:`StepGraph` of this (config, cloud shape,
-    n_points, fallback, device), captured on first use from ``state``'s
-    shapes."""
-    key = (config, tuple(points.shape), int(n_points), bool(fallback),
-           state.device)
-    g = _GRAPHS.get(key)
-    if g is None:
-        while len(_GRAPHS) >= _MAX_GRAPHS:
-            _GRAPHS.pop(next(iter(_GRAPHS)))
-        g = StepGraph(state, points, n_points, position, config, fallback)
-        _GRAPHS[key] = g
-    return g
+def clear_graphs() -> None:
+    """Drop every graph :func:`insert_steps_scan` cached, with the state
+    copies and memory pools they hold (the caching allocator keeps the
+    freed memory until ``torch.cuda.empty_cache``)."""
+    _GRAPHS.clear()
 
 
-def insert_steps_scan(state: ActiveMapState, points, n_points: int,
-                      position, config: MapConfig,
-                      reps: int) -> ActiveMapState:
+def insert_steps_scan(state: ActiveMapState, points, n_points, position,
+                      config: MapConfig, reps: int) -> ActiveMapState:
     """Integrate the same padded cloud ``reps`` times (the JAX package's
     ``insert_steps_scan``, a ``lax.scan`` over the insert in one dispatch).
 
     ``state`` is consumed as :func:`insert_step` consumes it; returns the
     state after ``reps`` inserts, equal bit for bit to a loop of
-    :func:`insert_step`.  On the CPU it is that loop.  On CUDA the first
-    insert runs eagerly and decides the fused/tile fallback with the call's
-    one host read (the count of uncovered samples depends only on the
-    cloud, the position and ``origin_blocks``, so every rep takes the same
-    branch); the other ``reps - 1`` are replays of one captured
-    :class:`StepGraph`, one graph launch each and no host read.
+    :func:`insert_step`.  On the CPU it is that loop.  On CUDA each insert
+    is one replay of a ``core.graph.InsertGraph`` cached in ``_GRAPHS`` by
+    (config, cloud shape, device), whose fused/tile fallback is an IF node
+    decided on the device: no host read.  The graph owns a copy of the
+    state, so a call copies ``state`` in and the pools out once; the first
+    call of a key runs its first insert eagerly (which builds the kernels
+    and allocates K5's workspace) and captures the graph after it.
+    ``reps == 1`` without a cached graph is one :func:`insert_step`.
     """
+    from . import graph
     if reps < 0:
         raise ValueError(f"reps must be >= 0, got {reps}")
-    if not _use_graph(state.device):
+    if not graph.use_graph(state.device):
         for _ in range(reps):
             state, _ = insert_step(state, points, n_points, position, config)
         return state
     if reps == 0:
         return state
-    state, metrics, tail = insert_step_deferred(state, points, n_points,
-                                                position, config)
-    fallback = tail is not None and tail.needed()
-    if fallback:
-        state = _apply_fallback(tail.make_grids, state, metrics, config)
-    if reps == 1:
-        return state
-    g = step_graph(state, points, n_points, position, config, fallback)
-    return g.run(state, points, position, reps - 1)
+    key = (config, tuple(points.shape), state.device)
+    g = _GRAPHS.get(key)
+    if g is None:
+        if reps == 1:
+            return insert_step(state, points, n_points, position, config)[0]
+        static = clone_state(state)
+        g = graph.InsertGraph(static, config, points.shape[0],
+                              owned_bytes=state_nbytes(static))
+        g.load(points, position, n_points)
+        g.warm()
+        g.capture()
+        _GRAPHS.put(key, g)
+        reps -= 1
+    else:
+        for f in _FIELDS:
+            getattr(g.state, f).copy_(getattr(state, f))
+        g.load(points, position, n_points)
+    for _ in range(reps):
+        g.replay()
+    state.pool_sd.copy_(g.state.pool_sd)
+    state.pool_w.copy_(g.state.pool_w)
+    return dataclasses.replace(
+        state, **{f: getattr(g.state, f).clone() for f in _CARRIED})

@@ -23,12 +23,25 @@ include/chad/tsdf.hpp:21-171, src/chad/tsdf.cpp:26-86):
   (slam/posegraph.py), applied as per-submap rigid corrections.
 
 Space carving (``carve_steps > 0``, core/carve.py) follows each insert.
-The fused and tile backends end an insert with a deferred branch
-(core/integrate.py ``FallbackTail``): the map settles it before anything
-else reads or updates the active state (the next insert, a rotation,
-``state``, ``stats``, ``save``, ``raycast``, a checkpoint, a loop closure,
-or a read of that insert's metrics), so no insert reads the device on the
-host.
+
+On the card each chunk of an insert is one CUDA graph replay
+(``core/graph.py`` ``InsertGraph``: the upload into the graph's input
+buffers, then the insert, its fused/tile fallback as an IF node decided on
+the device, and the carve), as the JAX package issues one executable per
+chunk.  The graphs are the map's own, cached by (dispatched config, point
+bucket, packed ingest, carving) and bound to the map's active state, which
+a rotation copies out for its stub and resets in place.  Replacing the
+active state from outside (the ``state`` setter, a checkpoint load) drops
+them; ``finalize_active``, ``merge`` and ``optimize_loop_closures`` leave
+the active state's tensors where they are.  The first insert of a key
+runs eagerly and captures the graph after it.
+
+On the CPU the insert is the eager loop, and the fused and tile backends
+end an insert with a deferred branch (core/integrate.py
+``FallbackTail``): the map settles it before anything else reads or
+updates the active state (the next insert, a rotation, ``state``,
+``stats``, ``save``, ``raycast``, a checkpoint, a loop closure, or a read
+of that insert's metrics).  No insert reads the device on the host.
 
 The map runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``; without a card the default raises rather
@@ -36,10 +49,12 @@ than falling back to the CPU.  ``accumulate_impl`` may be ``auto``,
 ``fused``, ``tile``, ``pallas``, ``xla`` or ``seg`` (core/integrate.py);
 under ``auto`` on CUDA each scan goes to the dense ``fused`` backend or,
 below ``sparse_points_per_block``, to ``sparse_impl``.
-``packed_ingest`` sends int16 points to the device.  The sharded map
+``packed_ingest`` quantizes the points to int16 steps (on the card inside
+the insert's graph).  The sharded map
 (``parallel.ShardedTSDFMap``) is a subclass that keeps its active map in
-``state_stack``, one state per shard.  Not ported (ROADMAP.md): the
-``sample_tile`` backend, which raises NotImplementedError.
+``state_stack``, one state per shard, and inserts eagerly.  Not to be
+ported (ROADMAP.md): the ``sample_tile`` backend, which raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,8 +72,9 @@ from ..config import MapConfig
 from ..mesh import device_mc, grid as grid_io, optimize, write_ply
 from ..mesh.mc import TriangleMesh, _vertex_normals, triangulate
 from ..ops import codec, morton
-from . import carve, dag, integrate, submap as submap_mod
-from .state import create_state, origin_blocks_for_position, resolve_device
+from . import carve, dag, graph, integrate, submap as submap_mod
+from .state import (clone_state, create_state, origin_blocks_for_position,
+                    reset_state_, resolve_device)
 
 # the device bytes the deferred rotations' stubs may pin (each keeps a whole
 # pool alive): the oldest is materialized while they exceed it.  Four pools
@@ -137,10 +153,16 @@ def _check_ported(config: MapConfig) -> None:
             missing.append(f"{name}='sample_tile'")
     if missing:
         raise NotImplementedError(
-            f"not ported to PyTorch yet (see ROADMAP.md): {missing}")
+            f"not ported to PyTorch and not to be ported (ROADMAP.md: the "
+            f"JAX package keeps it as its previous tiling approach): "
+            f"{missing}")
 
 
 class TSDFMap:
+    # inserts on the card replay CUDA graphs (module docstring); False
+    # runs the eager loop there too, for comparisons
+    graphs_enabled = True
+
     def __init__(self, sdf_res: float = 0.05, sdf_trunc: float = 0.1,
                  config: MapConfig | None = None, device="cuda"):
         if config is None:
@@ -161,6 +183,10 @@ class TSDFMap:
         self._positions: list[np.ndarray] = []
         self._active_snapshot: submap_mod.Submap | None = None
         self.last_metrics: dict = {}
+        # the insert graphs (their private memory pools bounded as
+        # insert_steps_scan's) and the active state they are bound to
+        self._graphs = integrate.GraphCache(integrate.MAX_GRAPH_BYTES)
+        self._gstate = None
 
     # ------------------------------------------------------------------
     @property
@@ -171,8 +197,19 @@ class TSDFMap:
 
     @state.setter
     def state(self, value) -> None:
+        """Replace the active state.  Another state than the one the map's
+        graphs are bound to drops them (the next insert captures anew);
+        None keeps them for the next submap, which resets their state in
+        place."""
         self._settle()
+        if value is not None and value is not self._gstate:
+            self.drop_graphs()
         self._state = value
+
+    def drop_graphs(self) -> None:
+        """Drop the map's insert graphs and their memory pools."""
+        self._graphs.clear()
+        self._gstate = None
 
     def _settle(self) -> None:
         """Finish the last insert: run its fallback if the device counted
@@ -225,7 +262,8 @@ class TSDFMap:
             self._start_submap(position)
         self._positions.append(position.copy())
         self._active_snapshot = None
-        pos_t = torch.from_numpy(position.copy()).to(self.device)
+        if not self._use_graphs():
+            pos_t = torch.from_numpy(position.copy()).to(self.device)
 
         cap = self.config.max_points
         buckets = self.config.buckets
@@ -237,10 +275,16 @@ class TSDFMap:
             # the JAX package): the tile kernels need N % 1024 == 0, and a
             # small scan skips most of the max_points pipeline
             bucket = next((b for b in buckets if b >= n), cap)
+            cfg = self._dispatch_config(chunk)
+            if self._use_graphs():
+                # the graph pads (and packs) on the device
+                metrics_acc.add(self._insert_graph(cfg, bucket, chunk,
+                                                   position))
+                continue
             if n < bucket:
                 chunk = np.concatenate(
                     [chunk, np.zeros((bucket - n, 3), np.float32)])
-            cfg = self._dispatch_config(points[beg:beg + cap])
+            n_t = torch.full((), n, dtype=torch.int32, device=self.device)
             if self.config.packed_ingest:
                 # the int16 array is what crosses to the device
                 q = integrate.pack_points(chunk, position, cfg.sdf_res)
@@ -250,12 +294,12 @@ class TSDFMap:
                 pts = torch.from_numpy(chunk).to(self.device)
             # reading self.state settles the previous cloud's end first
             self.state, metrics, tail = integrate.insert_step_deferred(
-                self.state, pts, n, pos_t, cfg)
+                self.state, pts, n_t, pos_t, cfg)
             metrics_acc.add(metrics)
             # the carve gets the map's config, not the dispatched one: it
             # does not depend on the accumulate backend.  It follows the
             # fallback, so it waits with it when that is undecided.
-            carve_args = (pts, n, pos_t) if self.config.carve_steps > 0 \
+            carve_args = (pts, n_t, pos_t) if self.config.carve_steps > 0 \
                 else None
             if tail is not None:
                 self._deferred = (tail, carve_args, metrics_acc)
@@ -277,6 +321,31 @@ class TSDFMap:
             self._warn_overflow()
         self.last_metrics = metrics_acc
         return metrics_acc
+
+    def _use_graphs(self) -> bool:
+        return self.graphs_enabled and graph.use_graph(self.device)
+
+    def _insert_graph(self, cfg: MapConfig, bucket: int, chunk: np.ndarray,
+                      position: np.ndarray) -> dict:
+        """One chunk (unpadded) as one replay of the map's graph for
+        (``cfg``, ``bucket``, packed ingest, carving), captured after an
+        eager first insert when new.  Returns the chunk's metrics."""
+        carving = self.config.carve_steps > 0
+        key = (cfg, bucket, cfg.packed_ingest, carving)
+        g = self._graphs.get(key)
+        if g is not None:
+            g.load(chunk, position, len(chunk))
+            g.replay()
+            return g.metrics()
+        if self._gstate is None:
+            self._gstate = self._state
+        g = graph.InsertGraph(self._gstate, cfg, bucket, cfg.packed_ingest,
+                              self.config if carving else None)
+        g.load(chunk, position, len(chunk))
+        metrics = g.warm()
+        g.capture()
+        self._graphs.put(key, g)
+        return metrics
 
     # overflow kinds that drop content; tile_overflow is excluded (those
     # samples are integrated exactly by the fallback)
@@ -343,7 +412,12 @@ class TSDFMap:
 
     def _start_submap(self, position: np.ndarray) -> None:
         origin = origin_blocks_for_position(position, self.config)
-        self.state = create_state(self.config, origin, self.device)
+        if self._gstate is not None:
+            # the graphs' state, reset in place (its tensors stay bound)
+            self._settle()
+            self._state = reset_state_(self._gstate, origin)
+        else:
+            self.state = create_state(self.config, origin, self.device)
         self._positions = []
 
     @staticmethod
@@ -356,9 +430,13 @@ class TSDFMap:
     def _stash_active(self):
         """The rotated-out active map as a pending stub
         (``submap_mod.start_finalize``: no host read, no device work on the
-        stream)."""
+        stream).  The graphs' state is copied for the stub (a device copy,
+        no host read): the next submap resets it in place."""
+        state = self.state
+        if state is self._gstate:
+            state = clone_state(state)
         return submap_mod.start_finalize(
-            self.state, self.config, self._positions,
+            state, self.config, self._positions,
             anchor=self._anchor_from(self._positions))
 
     def _finalize_active(self) -> None:

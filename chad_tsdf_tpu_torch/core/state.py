@@ -92,6 +92,30 @@ def create_state(config: MapConfig, origin_blocks=None,
     )
 
 
+def clone_state(state: ActiveMapState) -> ActiveMapState:
+    """A device copy of every field."""
+    return ActiveMapState(**{f: getattr(state, f).clone() for f in _FIELDS})
+
+
+def state_nbytes(state: ActiveMapState) -> int:
+    """The device bytes of the state's fields."""
+    return sum(getattr(state, f).nbytes for f in _FIELDS)
+
+
+def reset_state_(state: ActiveMapState, origin_blocks) -> ActiveMapState:
+    """Reset ``state`` IN PLACE to what :func:`create_state` makes for
+    ``origin_blocks`` (every tensor keeps its storage, so a CUDA graph
+    captured on it stays valid); returns it."""
+    state.dir_keys.fill_(INT32_MAX)
+    for name in _FIELDS:
+        if name not in ("dir_keys", "origin_blocks"):
+            getattr(state, name).zero_()
+    # a 12-byte copy from pageable memory: staged at once, no stream wait
+    state.origin_blocks.copy_(torch.from_numpy(
+        np.ascontiguousarray(origin_blocks, np.int32)), non_blocking=True)
+    return state
+
+
 def state_to_numpy(state: ActiveMapState) -> dict:
     """Every field as a numpy array, keyed by the JAX state's field names."""
     return {name: getattr(state, name).cpu().numpy() for name in _FIELDS}

@@ -23,6 +23,12 @@ Kernels and the TPU kernels they replace (``chad_tsdf_tpu/ops/...``):
 * M1 ``micro_stagea_phases``  <- scripts/micro_stagea_phases.py:build
 * M2 ``micro_tile_accum``     <- scripts/micro_tile_accum.py:run
 * M3 ``micro_mxu8``           <- scripts/micro_mxu8.py:build
+
+and one kernel of the port's own, with no TPU kernel behind it: the
+one-thread ``set_conditional`` that sets a CUDA graph's IF node from a
+device count (``ops/conditional.py``), the JAX package's ``lax.cond`` on
+the fused/tile fallback.  Its host half, ``end_conditional``, launches
+nothing and is called through :func:`call`.
 """
 
 from __future__ import annotations
@@ -61,6 +67,11 @@ _SIGNATURES = {
     "micro_stagea_phases": [_P] * 3 + [_I] * 4 + [_F] * 2 + [_P] * 3,
     "micro_tile_accum": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 3,
     "micro_mxu8": [_P] * 4 + [_I] * 4 + [_P] * 3,
+    "set_conditional": [_P] * 2,
+}
+# C entry points that launch no kernel (not counted), without the stream
+_HOST_SIGNATURES = {
+    "end_conditional": [_P],
 }
 
 # launches per kernel since the last reset_launches(); a wrapper adds one
@@ -161,7 +172,8 @@ def library() -> ctypes.CDLL:
         if _LIB is None:
             path, BUILD_LOG = build_library()
             lib = ctypes.CDLL(path)
-            for name, argtypes in _SIGNATURES.items():
+            for name, argtypes in (*_SIGNATURES.items(),
+                                   *_HOST_SIGNATURES.items()):
                 fn = getattr(lib, "chad_" + name)
                 fn.argtypes = argtypes + [_P]        # + stream
                 fn.restype = ctypes.c_int
@@ -171,15 +183,21 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry ``chad_<name>`` on the current stream; raise if the
-    launch failed, else count it."""
+def call(name: str, *args) -> None:
+    """Call C entry ``chad_<name>`` on the current stream; raise if it
+    returned an error."""
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, "chad_" + name)(*args, stream)
     if err != 0:
         msg = lib.chad_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({err})")
+
+
+def launch(name: str, *args) -> None:
+    """:func:`call` for an entry that launches a kernel, counted once it
+    launched."""
+    call(name, *args)
     LAUNCHES[name] += 1
 
 

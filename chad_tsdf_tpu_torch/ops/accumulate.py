@@ -199,6 +199,11 @@ def _workspace(dev: torch.device, words: int, rows: int):
     ``rows`` zeroed scratch rows if it is smaller."""
     ws = _WORKSPACE.get(dev)
     if ws is None or ws[0].numel() < words or ws[1].shape[0] < rows:
+        if torch.cuda.is_current_stream_capturing():
+            # a capture would record the zeroing without running it, and
+            # hand the graph's memory to later eager calls
+            raise RuntimeError("K5's workspace must be allocated by an eager "
+                               "call of the same shapes before a capture")
         if ws is not None:
             words = max(words, ws[0].numel())
             rows = max(rows, ws[1].shape[0])

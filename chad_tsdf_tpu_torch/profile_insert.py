@@ -21,11 +21,16 @@ cloud, seed 420) at the default ``MapConfig``:
 ``--workload kitti`` takes 1 and 2 on one KITTI-shaped scan
 (``io/kitti.py`` ``synthetic_lidar_scan``, seed 0) at the streaming
 configuration of ``scripts/kitti_stream.py``, dispatched to the sparse
-``seg`` backend as on the card (``--device cpu`` forces it): the stages
-are keys + sort, normals (K2), DDA + payload, the 2-key sort, the segmented
-sum, compaction, directory and scatter, marked through
-``core.integrate.STAGE_HOOK``, and everything ``TSDFMap.insert`` does before
-them on the host (padding, packing, the density estimate, the upload).
+``seg`` backend as on the card (``--device cpu`` forces it).  On the card
+``TSDFMap.insert`` replays its CUDA graph, so 1 profiles the replays; the
+stages of 2 are those of the eager insert (a graph replays no Python, so
+nothing marks them there): keys + sort, normals (K2), DDA + payload, the
+2-key sort, the segmented sum, compaction, directory and scatter, marked
+through ``core.integrate.STAGE_HOOK``, and everything ``TSDFMap.insert``
+does before them on the host (padding, packing, the density estimate, the
+upload).  Beside them, on the host clock: the host's steps of the graph
+insert one by one (padding, the density estimate, packing) and the whole
+graph insert, to its return and to the end of its device work.
 
 The last line is a JSON object with the numbers of 1-3.  The module also
 holds the test clouds and K5's input tables that ``chip_smoke.py`` and the
@@ -218,11 +223,12 @@ def stage_times(pts: np.ndarray, device: torch.device):
 
 def seg_stage_times(pts: np.ndarray, position: np.ndarray,
                     config: MapConfig, device: torch.device):
-    """Median per-stage ms over 5 inserts of one scan through
+    """Median per-stage ms over 5 eager inserts of one scan through
     ``TSDFMap.insert`` (after 2 warm-ups), the stages marked where
     ``core/integrate.py`` calls its ``STAGE_HOOK``; "host prep + upload" is
     what ``insert`` does before ``insert_step``."""
     m = TSDFMap(config=config, device=device)
+    m.graphs_enabled = False
     runs = []
     for i in range(7):
         t = StageTimer(device)
@@ -235,6 +241,41 @@ def seg_stage_times(pts: np.ndarray, position: np.ndarray,
             runs.append(t.stages)
     return {k: statistics.median(r[j][1] for r in runs)
             for j, (k, _) in enumerate(runs[0])}
+
+
+def graph_host_times(pts: np.ndarray, position: np.ndarray,
+                     config: MapConfig, device: torch.device, reps: int = 7):
+    """Median ms on the host clock (over ``reps``, after 2 warm-up inserts)
+    of what ``TSDFMap.insert`` does on the host before the replay, step by
+    step (``pad``: copying the scan into its bucket; ``dispatch``: the
+    density estimate; ``pack``: ``pack_points``), and of the whole insert
+    to its return (``insert_return``) and to the end of its device work
+    (``insert_synced``)."""
+    import time
+    m = TSDFMap(config=config, device=device)
+    for _ in range(2):
+        m.insert(pts, position)
+    sync(device)
+    bucket = next(b for b in config.buckets if b >= len(pts))
+    rows = {k: [] for k in ("pad", "dispatch", "pack", "insert_return",
+                            "insert_synced")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        chunk = np.concatenate(
+            [pts, np.zeros((bucket - len(pts), 3), np.float32)])
+        t1 = time.perf_counter()
+        cfg = m._dispatch_config(pts)
+        t2 = time.perf_counter()
+        integrate.pack_points(chunk, position, cfg.sdf_res)
+        t3 = time.perf_counter()
+        m.insert(pts, position)
+        t4 = time.perf_counter()
+        sync(device)
+        t5 = time.perf_counter()
+        for k, v in zip(rows, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                               t5 - t3)):
+            rows[k].append(v * 1e3)
+    return {k: statistics.median(v) for k, v in rows.items()}
 
 
 def sorted_cloud(pts: np.ndarray, cfg: MapConfig, device: torch.device,
@@ -298,7 +339,9 @@ def kitti_main(device: torch.device, reps: int) -> int:
            "profile": profile_inserts(pts, device, reps, cfg, pos)}
     print("profile:", json.dumps(res["profile"]), flush=True)
     res["stages_ms"] = seg_stage_times(pts, pos, cfg, device)
-    print("stages:", json.dumps(res["stages_ms"]), flush=True)
+    print("stages (eager):", json.dumps(res["stages_ms"]), flush=True)
+    res["host_ms"] = graph_host_times(pts, pos, cfg, device)
+    print("host:", json.dumps(res["host_ms"]), flush=True)
     print(json.dumps(res))
     return 0
 

@@ -63,9 +63,12 @@ print(json.dumps(out))
 
 
 def run_root(root: str, reps: int, impls: str) -> dict:
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
+    # from the root itself: ``-c`` puts the working directory first on
+    # sys.path, ahead of PYTHONPATH
+    root = os.path.abspath(root)
+    env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", _CHILD, str(reps), impls],
-                          env=env, capture_output=True, text=True,
+                          env=env, cwd=root, capture_output=True, text=True,
                           timeout=900, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 

@@ -15,6 +15,8 @@ first; then a fresh map takes scan 0, the stream is synchronised, and scans
 object with bench.py's three keys: ``kitti_scans_per_sec``,
 ``kitti_points_per_sec`` and ``kitti_tile_overflow``.
 
+On the card each scan is one replay of the map's CUDA graph
+(``core/graph.py``); the first scan of a map runs eagerly and captures it.
 ``--sparse-impl`` picks what sparse scans are dispatched to (``seg``,
 ``pallas``, ``fused``, ...).  On the CPU no dispatch happens (as in the JAX
 package off the TPU), so ``--device cpu`` times the ``xla`` backend unless
@@ -107,11 +109,13 @@ def count_host_reads():
         torch.nonzero = saved_nonzero
 
 
-def timed_stream(scans, config: MapConfig, device="cuda"):
+def timed_stream(scans, config: MapConfig, device="cuda", graphs=True):
     """The timed region of bench.py: scan 0 into a fresh map, synchronise,
-    scans 1.. timed to a second synchronisation.  Returns (map, seconds,
-    points, per-insert metrics, host reads counted in the timed inserts)."""
+    scans 1.. timed to a second synchronisation (``graphs=False``: the
+    eager insert on the card too).  Returns (map, seconds, points,
+    per-insert metrics, host reads counted in the timed inserts)."""
     m = TSDFMap(config=config, device=device)
+    m.graphs_enabled = graphs
     m.insert(*scans[0])
     wait(m)
     metrics = []

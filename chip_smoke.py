@@ -28,16 +28,22 @@ runs, failing with a non-zero exit on the first error:
    [0, nb)), its wgmmas per tile equal to the padded group lists.  K3 and
    K5 are also timed against one PyTorch call that computes their function
    (``index_add_`` / ``index_put_(accumulate=True)``), a yardstick the port
-   never calls;
+   never calls; the one-thread kernel that sets a CUDA graph's IF node
+   (``ops/conditional.py``) in a captured graph whose IF body allocates,
+   replayed for counts of both signs and zero after the allocator emptied
+   its cache and gave memory away, against its plain version;
 3. the main path: ``TSDFMap(0.05, 0.1, device="cuda")`` at the default
    MapConfig inserts the 2^20-point r = 5 m sphere (seed 420, bench.py's
-   cloud) and saves a PLY through device marching cubes (``mesh_impl``
+   cloud) six times (the first runs eagerly and captures the map's CUDA
+   graph, the other five replay it; the eager insert is timed beside them)
+   and saves a PLY through device marching cubes (``mesh_impl``
    ``auto`` on CUDA; its calls are counted), whose vertices must sit on the
    sphere; then the ``pallas`` and ``tile`` backends insert the same cloud
    and must give the fused map's blocks, weights and signed distances;
-4. a sparse 2048-point insert whose tiles overflow, so the fallback (K4,
-   then K5) runs; its pool is held against the scatter backend, and the
-   scatter form is not reached on the fallback;
+4. a sparse 2048-point eager insert whose tiles overflow, so the deferred
+   fallback (K4, then K5) runs when the map settles; its pool is held
+   against the scatter backend, and the scatter form is not reached on the
+   fallback;
 5. determinism: two fresh maps, same insert, bit-equal pools (dense,
    sparse, and dense under ``pallas``);
 6. the golden workload (tests/golden/sphere_r2_seed420.npz) through the
@@ -53,11 +59,13 @@ runs, failing with a non-zero exit on the first error:
    1.5 m apart, ``MapConfig(block_capacity=1 << 16, touched_capacity=
    1 << 15, packed_ingest=True)``), its scans/s, points/s and
    ``tile_overflow``; every scan must be dispatched to ``seg``, read
-   nothing on the host, launch K2 once and no other kernel, overflow
-   nothing and leave 2 deferred rotations behind; K2 against its plain
-   version on one sorted scan; the same stream under ``sparse_impl`` =
-   ``seg``, ``pallas`` and ``fused`` in turns (median scans/s of each), the
-   three final maps equal to each other, rotated-out submaps included;
+   nothing on the host, replay the map's graph (captured after the eager
+   first scan) that launches K2 and no other kernel, overflow nothing and
+   leave 2 deferred rotations behind; K2 against its plain version on one
+   sorted scan; the same stream under ``sparse_impl`` = ``seg``,
+   ``pallas`` and ``fused`` through the graphs and under ``seg`` eagerly,
+   in turns (median scans/s of each), the final maps equal to each other
+   (the two ``seg`` ones bit for bit), rotated-out submaps included;
    ``seg`` against the scatter backend and packed against f32 ingest on one
    scan; two ``seg`` streams bit-equal in pools and DAG counters, and a
    stream drained after every insert equal to the deferred one;
@@ -113,26 +121,45 @@ runs, failing with a non-zero exit on the first error:
 14. ``core.integrate.insert_steps_scan`` replaying a captured CUDA graph:
    at reps 3 bit-equal to 3 eager ``insert_step``s (pools, directory, slot
    order and the five counters) on the 2^20-point sphere (K1, K2, K3 in
-   the graph) and on phase 4's 2048-point sparse sphere under ``fused``
-   (K4 and K5 too: the first insert decides the fallback); the launches
-   per replay as captured, and as the profiler names the kernels of 4
-   replays; no synchronising call from ``core/integrate.py`` while
-   replaying; ms per insert through the graph, the eager loop and a
-   synced single, and the device's busy share under replay;
-   ``utils.timing.profile_insert``'s report and a ``trace`` file on the
-   card; ``examples/demo_sphere`` at full size in its own process, its PLY
-   on the r = 5 sphere.
+   the graph, K4 and K5 in its IF node, not run) and on phase 4's
+   2048-point sparse sphere under ``fused`` (the IF node runs K4 and K5);
+   the launches per replay as captured, and as the profiler names the
+   kernels of 4 replays; no synchronising call from ``core/integrate.py``
+   while replaying; ms per insert through the graph, the eager loop and a
+   synced single, and the device's busy share under replay; the memory
+   reserved before, during and after; ``utils.timing.profile_insert``'s
+   report and a ``trace`` file on the card; ``examples/demo_sphere`` at
+   full size in its own process, its PLY on the r = 5 sphere;
+15. ``TSDFMap.insert`` through its CUDA graphs (``core/graph.py``), every
+   insert bit-equal to the eager insert of a twin map (states active and
+   rotated-out, every metric) and reading nothing on the host: the dense
+   sphere under ``fused``, ``tile`` and ``pallas`` (clouds of 2^20,
+   2^20 - 12,345 and 900,000 points in one bucket), the 2048-point sparse
+   sphere under ``fused`` (three clouds, the IF node runs K4 and K5), and
+   phase 8's stream with its two rotations, carving off and on (then the
+   drain's ``stats()`` equal); the launches per replay outside and inside
+   the IF node, and for the sphere clouds the kernels the profiler sees in
+   one more replay; the graphs' bytes and the memory reserved before,
+   during and after; the cost of the rotation design (the stub's copy of
+   the graph's state and its reset in place, against an eager insert and
+   a capture on new tensors).
 
 The fused and tile inserts must report ``host_reads`` 0, and the fused
 inserts run once more under ``torch.cuda.set_sync_debug_mode("warn")``:
 no synchronising call may come from ``core/integrate.py``.
 
+A graph's kernels are counted where they are captured, never where the
+graph replays, so a map's counts are those of its eager first insert (its
+fallback runs unconditionally there, adding nothing where no sample needs
+it) and of the capture; the graphs report what one replay launches.
 Launch counts are reset just before the dense inserts of phase 3 and read
-right after them: K1, K2 and K3 must have launched there and K4 not.  They
-are reset again just before phase 4's sparse insert, where K4 and K5 must
-launch, just before phase 7's timing runs, where M1-M3 must launch, and
-just before phase 8's stream, where K2 must launch once per insert and K1,
-K3, K4 and K5 not at all.
+right after them: K1, K2, K3 and ``set_conditional`` must have launched
+there, and the map's graph must hold one of each outside its IF node.
+They are reset again just before phase 4's sparse insert, where K4 and K5
+must launch, just before phase 7's timing runs, where M1-M3 must launch,
+and just before phase 8's stream, where K2 must launch twice (the eager
+scan and the capture), the graph one K2 a replay, and K1, K3, K4 and K5
+not at all.
 Phases 10-12 reset them just before their own inserts and read them right
 after (K2 on the carved stream and the checkpoint's 2 scans, K1-K3 on the
 loop closure's sphere passes); phase 13 just before one N = 4 dense insert
@@ -144,7 +171,9 @@ for K4-K5, phase 7 for M1-M3 (and, as ``launches_stream``,
 in the inserts of phases 8, 10, 11 and 12, and as
 ``launches_sharded_dense`` and ``launches_sharded_stream`` in phase 13's,
 and as ``launches_per_replay_dense`` and ``launches_per_replay_fallback``
-each replay of phase 14's two graphs),
+each replay of phase 14's two graphs, and as ``launches_per_insert_map``
+each insert through phase 15's map graphs, by cloud: what the graph
+launches outside its IF node, plus its body where the cloud falls back),
 with its time, its plain
 version's time, the library call's time (or null) and ``bound_ms``: the
 least time the H100 could take for the same work on this run's inputs, the
@@ -193,6 +222,9 @@ KERNELS = {
                          "scripts/micro_tile_accum.py:72"),
     "micro_mxu8": ("chad_tsdf_tpu_torch/csrc/micro.cu",
                    "scripts/micro_mxu8.py:129"),
+    # no TPU kernel: it sets the IF node that stands for the lax.cond
+    "set_conditional": ("chad_tsdf_tpu_torch/csrc/conditional.cu",
+                        "chad_tsdf_tpu/core/integrate.py:674"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores
@@ -807,51 +839,69 @@ def run_stream(cfg):
     require(out["kitti_tile_overflow"] == 0,
             f"kitti_tile_overflow {out['kitti_tile_overflow']}")
 
-    # the three sparse backends in turns; the first round warms each
-    rates = {"seg": [], "pallas": [], "fused": []}
+    # the three sparse backends in turns, and seg's eager insert; the first
+    # round warms each
+    turns = {"seg": ("seg", True), "seg eager": ("seg", False),
+             "pallas": ("pallas", True), "fused": ("fused", True)}
+    rates = {name: [] for name in turns}
     maps, stream_launches, undrained = {}, None, None
     for rnd in range(4):
-        for impl in rates:
+        for name, (impl, graphs) in turns.items():
             c = ks.stream_config(sparse_impl=impl)
             kernels.reset_launches()
-            m, dt, n_pts, metrics, reads = ks.timed_stream(scans, c, "cuda")
+            m, dt, n_pts, metrics, reads = ks.timed_stream(scans, c, "cuda",
+                                                           graphs)
             launches = dict(kernels.LAUNCHES)
             require(not accumulate.overflowed("cuda"),
-                    f"K5 chunk list overflowed on the {impl} stream")
+                    f"K5 chunk list overflowed on the {name} stream")
             backends = {m._dispatch_config(p).accumulate_impl
                         for p, _ in scans}
             require(backends == {impl},
                     f"scans dispatched to {backends}, not {impl}")
             require(m.n_submaps == rotations and
                     len(m._pending) == rotations and not m.submaps,
-                    f"{impl}: {m.n_submaps} submaps, {len(m._pending)} "
+                    f"{name}: {m.n_submaps} submaps, {len(m._pending)} "
                     f"pending; the policy gives {rotations} deferred")
             host_reads = {int(x["host_reads"]) for x in metrics}
-            if impl == "seg":
-                require(reads == {} and host_reads == {0},
-                        f"seg inserts read the host: {reads}, {host_reads}")
+            require(reads == {} and host_reads == {0},
+                    f"{name} inserts read the host: {reads}, {host_reads}")
+            if name == "seg":
+                # scan 0 ran eagerly and captured the map's graph; scans
+                # 1.. replayed it, each launching K2 and nothing else
+                (sg,) = m._graphs.values()
+                require(launches["estimate_normals"] == 2 and
+                        sg.replays == len(scans) - 1 and
+                        sg.launches == {"estimate_normals": 1} and
+                        not sg.body_launches,
+                        f"K2 launched {launches['estimate_normals']} times "
+                        f"for {len(scans)} seg inserts; the graph: "
+                        f"{sg.replays} replays, launches {sg.launches}, in "
+                        f"its IF node {sg.body_launches}")
+                for k in ("fused_tile_partials", "merge_partials",
+                          "tile_partials", "accumulate_segments"):
+                    require(launches[k] == 0, f"{k} launched on the seg "
+                                              f"stream")
+                stream_launches = launches
+            if name == "seg eager":
                 require(launches["estimate_normals"] == len(scans),
                         f"K2 launched {launches['estimate_normals']} times "
-                        f"in {len(scans)} seg inserts")
-                for name in ("fused_tile_partials", "merge_partials",
-                             "tile_partials", "accumulate_segments"):
-                    require(launches[name] == 0,
-                            f"{name} launched on the seg stream")
-                stream_launches = launches
+                        f"in {len(scans)} eager seg inserts")
             if rnd > 0:
-                rates[impl].append((len(scans) - 1) / dt)
-            if impl in maps and impl == "seg":
-                bit_equal_maps(m, maps[impl], "two seg streams")
+                rates[name].append((len(scans) - 1) / dt)
+            if name.startswith("seg") and "seg" in maps:
+                bit_equal_maps(m, maps["seg"], f"{name} and seg streams")
                 if undrained is None:
-                    undrained = maps[impl]
-            maps[impl] = m
+                    undrained = maps["seg"]
+            if name != "seg eager":
+                maps[impl] = m
             if rnd == 3:
-                log(f"phase 8 {impl}: {statistics.median(rates[impl]):.2f} "
+                log(f"phase 8 {name}: {statistics.median(rates[name]):.2f} "
                     f"scans/s median of "
-                    f"{[round(r, 2) for r in rates[impl]]}, "
+                    f"{[round(r, 2) for r in rates[name]]}, "
                     f"{n_pts / dt:.0f} points/s in the last round; host "
                     f"reads/insert {sorted(host_reads)} (counted calls "
                     f"{reads}); launches in 12 inserts {launches}")
+            del m
         torch.cuda.empty_cache()
     for impl in ("pallas", "fused"):
         err = same_map(maps[impl], maps["seg"], f"stream {impl} vs seg")
@@ -1079,9 +1129,15 @@ def run_carve():
         require(reads == {}, f"the carved stream read the host: {reads}")
         backends = {m._dispatch_config(p).accumulate_impl for p, _ in scans}
         require(backends == {"seg"}, f"carved scans dispatched to {backends}")
-        require(launches["estimate_normals"] == len(scans),
-                f"K2 launched {launches['estimate_normals']} times in "
-                f"{len(scans)} carved inserts")
+        # scan 0 ran eagerly and captured the graph (insert and carve);
+        # the other scans replayed it
+        (cg,) = m._graphs.values()
+        require(launches["estimate_normals"] == 2 and
+                cg.replays == len(scans) - 1 and
+                cg.launches == {"estimate_normals": 1},
+                f"K2 launched {launches['estimate_normals']} times for "
+                f"{len(scans)} carved inserts; the graph: {cg.replays} "
+                f"replays, launches {cg.launches}")
         for k in ("fused_tile_partials", "merge_partials", "tile_partials",
                   "accumulate_segments"):
             require(launches[k] == 0, f"{k} launched on the carved stream")
@@ -1167,7 +1223,10 @@ def run_checkpoint(tmp):
         a.insert(pts, pos)
         b.insert(pts, pos)
     launches = dict(kernels.LAUNCHES)
-    require(launches["estimate_normals"] == 4,
+    # the loaded map's first insert ran eagerly and captured its graph;
+    # the other three inserts replayed a graph
+    require(launches["estimate_normals"] == 2 and
+            [g.replays for g in b._graphs.values()] == [1],
             f"K2 launched {launches['estimate_normals']} times in 4 inserts")
     bit_equal_maps(a, b, "checkpoint reloaded")
     ca, sa = a.voxel_samples()
@@ -1844,6 +1903,7 @@ KERNEL_SYMBOLS = {
     "merge_partials": ("merge_partials_kernel",),
     "tile_partials": ("tile_partials_kernel",),
     "accumulate_segments": ("accumulate_chunks_kernel",),
+    "set_conditional": ("set_conditional_kernel",),
 }
 GRAPH_FIELDS = ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
                 "point_overflow", "sample_overflow", "block_overflow",
@@ -1853,15 +1913,22 @@ GRAPH_FIELDS = ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
 def profiled(fn):
     """Run ``fn`` under ``torch.profiler`` with CUDA activity; returns (the
     device's kernels by name with their counts, device busy ms, window
-    ms)."""
+    ms).  Only device activity that starts after a marker kernel launched
+    at the start of the region counts: the profiler can hand over a
+    record of a kernel that ended before it started."""
     import collections
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)
         fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    marks = [e.time_range.start for e in evs if "spin" in e.name]
+    if marks:
+        evs = [e for e in evs if e.time_range.start > min(marks) and
+               "spin" not in e.name]
     names = collections.Counter(e.name for e in evs)
     if not evs:
         return names, None, None
@@ -1874,9 +1941,10 @@ def profiled(fn):
 def run_graph(tmp):
     """Phase 14: ``insert_steps_scan`` replaying a captured CUDA graph,
     held bit for bit against eager inserts, on the dense sphere and on the
-    2048-point sparse sphere (whose graph holds K4 and K5); its timing and
-    busy share; ``utils.timing`` and ``demo_sphere`` on the card.  Returns
-    the launches per replay of each graph."""
+    2048-point sparse sphere (whose graph's IF node runs K4 and K5); its
+    timing and busy share; the memory reserved before, during and after;
+    ``utils.timing`` and ``demo_sphere`` on the card.  Returns (the
+    launches per replay of each graph, the memory reserved by moment)."""
     from chad_tsdf_tpu_torch import MapConfig, kernels
     from chad_tsdf_tpu_torch.core import integrate
     from chad_tsdf_tpu_torch.core.state import (create_state,
@@ -1885,6 +1953,7 @@ def run_graph(tmp):
     from chad_tsdf_tpu_torch.ops import accumulate
     from chad_tsdf_tpu_torch.utils import timing
     t_phase = time.perf_counter()
+    mem = {"before": reserved_mb()}
     dev = torch.device("cuda", torch.cuda.current_device())
     pos = torch.zeros(3, dtype=torch.float32, device=dev)
     per_replay = {}
@@ -1899,7 +1968,7 @@ def run_graph(tmp):
         eager = create_state(cfg, origin, dev)
         for _ in range(reps):
             eager, _ = integrate.insert_step(eager, pts, n, pos, cfg)
-        integrate._GRAPHS.clear()
+        integrate.clear_graphs()
         kernels.reset_launches()
         scan = integrate.insert_steps_scan(create_state(cfg, origin, dev),
                                            pts, n, pos, cfg, reps)
@@ -1907,7 +1976,7 @@ def run_graph(tmp):
         captured = dict(kernels.LAUNCHES)
         require(len(integrate._GRAPHS) == 1,
                 f"{name}: {len(integrate._GRAPHS)} graphs captured")
-        g = next(iter(integrate._GRAPHS.values()))
+        (g,) = integrate._GRAPHS.values()
         require(g.replays == reps - 1, f"{name}: {g.replays} replays")
         for f in GRAPH_FIELDS:
             require(torch.equal(getattr(scan, f), getattr(eager, f)),
@@ -1915,37 +1984,44 @@ def run_graph(tmp):
                     f"{reps} eager inserts")
         require(not accumulate.overflowed(dev),
                 f"{name}: K5 chunk list overflowed")
-        want = ["fused_tile_partials", "estimate_normals", "merge_partials"]
-        if name == "fallback":
-            want += ["tile_partials", "accumulate_segments"]
-        require(g.fallback == (name == "fallback"),
-                f"{name}: fallback decided {g.fallback}")
-        require(g.launches == dict.fromkeys(want, 1),
-                f"{name}: launches per replay {g.launches}, expected one "
-                f"of each of {want}")
+        falls_back = int(scan.tile_overflow) > 0
+        require(falls_back == (name == "fallback"),
+                f"{name}: tile_overflow {int(scan.tile_overflow)}")
+        outer = ["fused_tile_partials", "estimate_normals", "merge_partials",
+                 "set_conditional"]
+        body = ["tile_partials", "accumulate_segments"]
+        require(g.launches == dict.fromkeys(outer, 1) and
+                g.body_launches == dict.fromkeys(body, 1),
+                f"{name}: launches per replay {g.launches}, in the IF node "
+                f"{g.body_launches}")
+        want = dict.fromkeys(outer + (body if falls_back else []), 1)
         # the replays alone: kernels by name (one replay each), no
         # synchronising call from core/integrate.py
-        names, busy, window = profiled(lambda: g.run(scan, pts, pos, 4))
+        names, busy, window = profiled(
+            lambda: integrate.insert_steps_scan(scan, pts, n, pos, cfg, 4))
         seen = {k: sum(c for nm, c in names.items()
-                       if any(s in nm for s in sym)) / 4
+                       if any(sy in nm for sy in sym)) / 4
                 for k, sym in KERNEL_SYMBOLS.items()}
         if any(seen.values()):
-            require(all(seen[k] == g.launches.get(k, 0) for k in seen),
+            require(all(seen[k] == want.get(k, 0) for k in seen),
                     f"{name}: the profiler's kernels per replay {seen} "
-                    f"against the captured {g.launches}")
-        mine, _ = integrate_syncs(lambda: g.run(scan, pts, pos, 2))
+                    f"against {want}")
+        mine, _ = integrate_syncs(
+            lambda: integrate.insert_steps_scan(scan, pts, n, pos, cfg, 2))
         require(not mine, f"{name}: replays synchronised in "
                           f"core/integrate.py: {mine}")
-        per_replay[name] = dict(g.launches)
+        per_replay[name] = want
         log(f"phase 14 {name} ({n} points, {cfg.accumulate_impl}): "
             f"insert_steps_scan at reps {reps} bit-equal to {reps} eager "
             f"inserts (pools, directory, slot order, the five counters: "
-            f"tile_overflow {int(scan.tile_overflow)}); fallback in the "
-            f"graph {g.fallback}; launches per replay {g.launches} (the "
-            f"profiler's kernels per replay: "
-            f"{seen if any(seen.values()) else 'none seen'}); "
-            f"launch counts of the eager insert + capture {captured}")
+            f"tile_overflow {int(scan.tile_overflow)}); launches per replay "
+            f"outside the IF node {g.launches}, in it {g.body_launches}, "
+            f"run {want} (the profiler's kernels per replay: "
+            f"{seen if any(seen.values()) else 'none seen'}); launch counts "
+            f"of the eager insert + capture {captured}; graph bytes "
+            f"{g.nbytes}")
         if name == "dense":
+            mem["during"] = reserved_mb()
             # timing: the graph against the eager loop and a synced single
             st = scan
             t_reps = 10
@@ -1972,7 +2048,8 @@ def run_graph(tmp):
             med = {k: statistics.median(v) for k, v in rows.items()}
             busy_txt = ("not measured" if busy is None else
                         f"{busy / 4:.3f} ms of device time per replay in "
-                        f"{window / 4:.3f} ms, busy {busy / window:.1%}")
+                        f"{window / 4:.3f} ms, busy {busy / window:.1%} "
+                        f"(the state's copies in and out included)")
             log(f"phase 14 timing (dense, ms per insert, median of 3 "
                 f"rounds of {t_reps}): insert_steps_scan {med['graph']:.3f} "
                 f"{[round(x, 3) for x in rows['graph']]}, eager loop "
@@ -1982,8 +2059,10 @@ def run_graph(tmp):
                 f"graph; under replay {busy_txt}")
             del st
         del eager, scan, g
-        integrate._GRAPHS.clear()
+        integrate.clear_graphs()
         torch.cuda.empty_cache()
+    mem["after"] = reserved_mb()
+    log(f"phase 14 memory reserved (MiB): {mem}")
 
     # utils.timing on the card
     cfg = MapConfig()
@@ -2026,7 +2105,221 @@ def run_graph(tmp):
     log(f"phase 14 demo_sphere (1,000,000 points, subprocess "
         f"{time.perf_counter() - t0:.1f} s): {' | '.join(lines)}")
     log(f"phase 14 time: {time.perf_counter() - t_phase:.1f} s")
-    return per_replay
+    return per_replay, mem
+
+
+def check_conditional(results):
+    """Phase 2: the one-thread kernel that sets a CUDA graph's IF node
+    (``ops/conditional.py``) against its plain version: a captured graph
+    whose IF body allocates and adds into a marker, replayed for counts of
+    both signs and zero after the allocator emptied its cache and handed
+    memory to another tensor (the body's memory must stay the graph's);
+    its time in a graph with an empty body, against the plain version's
+    comparison as one torch op."""
+    from chad_tsdf_tpu_torch.ops import conditional
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flag = torch.zeros((), dtype=torch.int32, device=dev)
+    marker = torch.zeros(4, dtype=torch.int32, device=dev)
+    pool = torch.cuda.MemPool()
+
+    def body():
+        step = torch.arange(1, 5, dtype=torch.int32, device=dev) * 3
+        marker.add_(step + torch.ones_like(step) - 1)
+
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        marker.zero_()
+        conditional.if_positive(flag, body, pool)
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 22,), -7, dtype=torch.int32, device=dev)
+    err = 0
+    for v in (2**31 - 1, 7, 1, 0, -1, -2**31):
+        flag.fill_(v)
+        g.replay()
+        torch.cuda.synchronize()
+        want = torch.arange(1, 5, dtype=torch.int32, device=dev) * 3 \
+            if conditional.set_conditional_plain(flag.cpu()) else \
+            torch.zeros(4, dtype=torch.int32, device=dev)
+        err = max(err, int((marker - want).abs().max()))
+    require(err == 0, f"set_conditional: the IF body disagrees with the "
+                      f"plain version by {err}")
+    # a MemPool must outlive the capture (its destructor empties the cache)
+    empty, empty_pool = torch.cuda.CUDAGraph(), torch.cuda.MemPool()
+    with torch.cuda.graph(empty):
+        conditional.if_positive(flag, lambda: None, empty_pool)
+    flag.fill_(0)
+    ms = cuda_ms(empty.replay)
+    plain_ms = cuda_ms(lambda: torch.gt(flag, 0))
+    del junk, g, empty, pool, empty_pool
+    results["set_conditional"] = {"max_abs_err": float(err), "ms": ms,
+                                  "plain_ms": plain_ms, "library_ms": None}
+    results["set_conditional"]["bound_ms"], \
+        results["set_conditional"]["bound_by"] = bound(4)
+    log(f"phase 2 set_conditional: IF body bit-equal to the plain version "
+        f"for counts of both signs and 0; {ms:.4f} ms a replay of its graph "
+        f"(empty body), plain {plain_ms:.4f} ms")
+
+
+def reserved_mb():
+    torch.cuda.synchronize()
+    return round(torch.cuda.memory_reserved() / 2**20, 1)
+
+
+def same_insert(ga, ea, ma, mb, what):
+    """Two maps' active and rotated-out states bit-equal in every field,
+    and one insert's metrics equal."""
+    require(dict(ma) == dict(mb), f"{what}: metrics {dict(ma)} against "
+                                  f"{dict(mb)}")
+    states = lambda m: [m.state] + [p.raw_state for p in m._pending]
+    require(len(ga._pending) == len(ea._pending),
+            f"{what}: pending submaps differ")
+    for x, y in zip(states(ga), states(ea)):
+        for f in GRAPH_FIELDS + ("origin_blocks",):
+            require(torch.equal(getattr(x, f), getattr(y, f)),
+                    f"{what}: {f} not bit-equal to the eager insert")
+
+
+def graph_pair(cfg):
+    """(a map that replays graphs, a map that inserts eagerly) on the
+    card."""
+    from chad_tsdf_tpu_torch import TSDFMap
+    eager = TSDFMap(config=cfg, device="cuda")
+    eager.graphs_enabled = False
+    return TSDFMap(config=cfg, device="cuda"), eager
+
+
+def run_map_graph():
+    """Phase 15: ``TSDFMap.insert`` through its CUDA graphs, bit-equal to
+    the eager insert: the dense sphere under fused, tile and pallas (three
+    clouds of different n in the 2^20 bucket), the 2048-point sparse
+    sphere under fused (the IF body runs K4 and K5), the phase-8 stream
+    with two rotations, carving off and on; no host read; launches per
+    insert; memory reserved.  Returns (launches per insert by cloud,
+    memory reserved by moment)."""
+    from chad_tsdf_tpu_torch import MapConfig
+    from chad_tsdf_tpu_torch.core import graph
+    from chad_tsdf_tpu_torch.core.state import clone_state, reset_state_
+    from chad_tsdf_tpu_torch.ops import accumulate
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+    t_phase = time.perf_counter()
+    mem = {"before": reserved_mb()}
+    per_insert = {}
+    pos0 = np.zeros(3, np.float32)
+    dense = sphere(N_DENSE, 5.0, 420)
+    cases = [(f"dense {impl}", MapConfig(accumulate_impl=impl),
+              [(dense[:n], pos0) for n in (N_DENSE, N_DENSE - 12345,
+                                           900_000)])
+             for impl in ("fused", "tile", "pallas")]
+    cases.append(("sparse fused", MapConfig(max_points=2048,
+                                            accumulate_impl="fused"),
+                  [(sphere(2048, 5.0, 7 + i)[:2048 - 50 * i], pos0)
+                   for i in range(3)]))
+    scans = ks.make_scans()
+    for carving in (False, True):
+        kw = dict(carve_steps=128, carve_stride=2.0, carve_subsample=2) \
+            if carving else {}
+        cases.append((f"stream carve {'on' if carving else 'off'}",
+                      ks.stream_config(**kw), scans))
+    for name, cfg, clouds in cases:
+        gm, em = graph_pair(cfg)
+        reads_all = {}
+        for i, (pts, pos) in enumerate(clouds):
+            with ks.count_host_reads() as reads:
+                mg = gm.insert(pts, pos)
+            reads_all.update(reads)
+            me = em.insert(pts, pos)
+            same_insert(gm, em, mg, me, f"phase 15 {name}, insert {i}")
+            require(mg["host_reads"] == 0 and not reads,
+                    f"{name}: insert {i} read the host: {reads}")
+        require(not accumulate.overflowed("cuda"),
+                f"{name}: K5 chunk list overflowed")
+        graphs = gm._graphs.values()
+        require(len(graphs) >= 1 and all(g.replays > 0 for g in graphs),
+                f"{name}: graphs {[(g.replays) for g in graphs]}")
+        tile_ovf = int(gm.state.tile_overflow)
+        if name == "sparse fused":
+            require(tile_ovf > 0, "the sparse sphere did not fall back")
+        elif name.startswith("dense"):
+            require(tile_ovf == 0, f"{name}: tile_overflow {tile_ovf}")
+        if name == "stream carve off":
+            # the rotation design: the stub's copy of the graph's state and
+            # the state's reset in place, against a capture on new tensors
+            st = gm.state
+            origin = st.origin_blocks.cpu().numpy()
+            rotate_ms = cuda_ms(lambda: reset_state_(clone_state(st), origin))
+            g0 = gm._graphs.values()[0]
+            fresh = graph.InsertGraph(clone_state(st), g0.config,
+                                      g0.points.shape[0], g0.packed)
+            fresh.load(clouds[0][0], clouds[0][1], len(clouds[0][0]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh.warm()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fresh.capture()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rotation = {"clone_and_reset_ms": rotate_ms,
+                        "eager_insert_ms": (t1 - t0) * 1e3,
+                        "capture_ms": (t2 - t1) * 1e3,
+                        "capture_bytes": fresh.nbytes}
+            log(f"phase 15 rotation: the stub's copy and the reset in place "
+                f"{rotate_ms:.4f} ms of device time (CUDA events, median of "
+                f"10) against recapturing on new tensors: an eager insert "
+                f"{rotation['eager_insert_ms']:.3f} ms, then the capture "
+                f"{rotation['capture_ms']:.3f} ms and {fresh.nbytes} bytes "
+                f"(host clock)")
+            del fresh, st, g0
+        if name.startswith("stream"):
+            require(len(gm._pending) == 2, f"{name}: "
+                    f"{len(gm._pending)} pending rotations")
+            gs, es = gm.stats(), em.stats()
+            require(gs == es, f"{name}: stats after the drain differ")
+        (g,) = graphs[:1]
+        fell = tile_ovf > 0
+        per_insert[name] = {k: g.launches.get(k, 0) + (
+            g.body_launches.get(k, 0) if fell else 0)
+            for k in set(g.launches) | set(g.body_launches)}
+        busy_txt = ""
+        if not name.startswith("stream"):
+            # one more replay under the profiler, held to the eager insert
+            # after it: the kernels the device ran, K4 and K5 only where
+            # the IF node took its body.  Late in this script the profiler
+            # has reported K5's two kernels twice for one such replay (not
+            # in a process that runs phases 14-15 alone); a second K5 run
+            # would double the pools, which the eager insert after it
+            # rules out, so the check on the profiler is the set
+            pts, pos = clouds[-1]
+            names, busy, window = profiled(lambda: gm.insert(pts, pos))
+            same_insert(gm, em, gm.last_metrics, em.insert(pts, pos),
+                        f"phase 15 {name}, the profiled insert")
+            seen = {k: sum(c for nm, c in names.items()
+                           if any(sy in nm for sy in sym))
+                    for k, sym in KERNEL_SYMBOLS.items()}
+            if any(seen.values()):
+                require({k for k, v in seen.items() if v} ==
+                        {k for k, v in per_insert[name].items() if v},
+                        f"{name}: the profiler's kernels in one replay "
+                        f"{seen} against {per_insert[name]}")
+            busy_txt = (f"; one replay under the profiler (then bit-equal "
+                        f"to the eager insert): kernels {seen}, "
+                        + ("device time not measured" if busy is None else
+                           f"{busy:.3f} ms of device time in {window:.3f} "
+                           f"ms, busy {busy / window:.1%}"))
+        log(f"phase 15 {name}: {len(clouds)} inserts through "
+            f"{len(graphs)} graph(s), each bit-equal to the eager insert "
+            f"(states active and rotated-out, metrics); tile_overflow "
+            f"{tile_ovf}; launches per replay outside the IF node "
+            f"{g.launches}, in its body {g.body_launches}; graph bytes "
+            f"{gm._graphs.nbytes()}; host reads {reads_all}{busy_txt}")
+        if name == "dense fused":
+            mem["during"] = reserved_mb()
+        del gm, em, graphs, g
+        torch.cuda.empty_cache()
+    mem["after"] = reserved_mb()
+    log(f"phase 15 memory reserved (MiB): {mem}; time "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return per_insert, mem
 
 
 def main() -> int:
@@ -2064,6 +2357,7 @@ def main() -> int:
     check_kernels(cfg, results)
     torch.cuda.empty_cache()
     check_k5(cfg, results)
+    check_conditional(results)
     micro_errs = check_micro()
     torch.cuda.empty_cache()
 
@@ -2081,11 +2375,29 @@ def main() -> int:
         torch.cuda.synchronize()
         insert_ms.append((time.perf_counter() - t0) * 1e3)
     dense_launches = dict(kernels.LAUNCHES)
-    for name in ("fused_tile_partials", "estimate_normals", "merge_partials"):
+    # the first insert ran eagerly (its fallback unconditionally: K4 and
+    # K5 add nothing there) and captured the map's graph; the other five
+    # replayed it, which no count sees (phase 15 reads the replays)
+    for name in ("fused_tile_partials", "estimate_normals", "merge_partials",
+                 "set_conditional"):
         require(dense_launches[name] > 0,
                 f"{name} launched 0 times on the dense sphere")
-    require(dense_launches["tile_partials"] == 0,
-            "the dense sphere fell back through K4")
+    (dense_graph,) = m._graphs.values()
+    require(dense_graph.replays == 5 and dense_graph.launches == dict.fromkeys(
+        ("fused_tile_partials", "estimate_normals", "merge_partials",
+         "set_conditional"), 1), f"the dense sphere's graph: "
+        f"{dense_graph.replays} replays, launches {dense_graph.launches}")
+    eager_ms = []
+    me = TSDFMap(0.05, 0.1, device="cuda")
+    me.graphs_enabled = False
+    me.insert(dense, origin0)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        t0 = time.perf_counter()
+        me.insert(dense, origin0)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    del me
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "mesh.ply")
         device_mc.CALLS["marching_cubes_device"] = 0
@@ -2116,11 +2428,14 @@ def main() -> int:
     rmse = float(np.sqrt(np.mean((radius - 5.0) ** 2)))
     require(rmse < 0.1 * cfg.sdf_res, f"sphere RMSE {rmse}")
     ins = statistics.median(insert_ms)
-    log(f"phase 3 dense insert: {ins:.3f} ms median of "
-        f"{[round(x, 3) for x in insert_ms]} -> {N_DENSE / ins * 1e3:.0f} "
-        f"points/s; n_blocks {n_blocks}, tile_overflow {tile_ovf}, "
-        f"host reads/insert {met['host_reads']}, n_valid_samples "
-        f"{met['n_valid_samples']}; launches {dense_launches}")
+    log(f"phase 3 dense insert (TSDFMap.insert, one graph replay): "
+        f"{ins:.3f} ms median of {[round(x, 3) for x in insert_ms]} -> "
+        f"{N_DENSE / ins * 1e3:.0f} points/s; eager insert "
+        f"{statistics.median(eager_ms):.3f} ms median of "
+        f"{[round(x, 3) for x in eager_ms]}; n_blocks {n_blocks}, "
+        f"tile_overflow {tile_ovf}, host reads/insert {met['host_reads']}, "
+        f"n_valid_samples {met['n_valid_samples']}; launches (eager first "
+        f"insert + capture) {dense_launches}")
     log(f"phase 3 sync debug mode over 3 fused inserts: synchronising "
         f"calls from core/integrate.py {mine}; from anywhere {syncs}")
     log(f"phase 3 save (device marching cubes): {save_ms:.1f} ms (sub fin "
@@ -2168,7 +2483,10 @@ def main() -> int:
     # fused by name: under auto this cloud would be dispatched to seg
     sparse_cfg = MapConfig(max_points=2048, accumulate_impl="fused")
     sparse = sphere(2048, 5.0, 7)
+    # the eager insert with its deferred fallback (FallbackTail); phase 15
+    # holds the graph's IF node to it
     ms_ = TSDFMap(0.05, 0.1, config=sparse_cfg, device="cuda")
+    ms_.graphs_enabled = False
     scatter = accumulate.accumulate_xla
 
     def no_scatter(*args, **kw):
@@ -2263,7 +2581,11 @@ def main() -> int:
 
     # ---- phase 14: insert_steps_scan as a CUDA graph; utils, examples ----
     with tempfile.TemporaryDirectory() as tmp:
-        graph_launches = run_graph(tmp)
+        graph_launches, graph_mem = run_graph(tmp)
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: TSDFMap.insert through its CUDA graphs ----
+    map_graph_launches, map_graph_mem = run_map_graph()
     torch.cuda.empty_cache()
 
     # ---- result ----
@@ -2295,8 +2617,13 @@ def main() -> int:
                     "launches_per_replay_dense":
                         graph_launches["dense"].get(name, 0),
                     "launches_per_replay_fallback":
-                        graph_launches["fallback"].get(name, 0)})
+                        graph_launches["fallback"].get(name, 0),
+                    "launches_per_insert_map": {
+                        cloud: got.get(name, 0)
+                        for cloud, got in map_graph_launches.items()}})
     log(f"phase 2 details: {json.dumps(results)}")
+    log(f"memory reserved (MiB) around phase 14: {json.dumps(graph_mem)}, "
+        f"around phase 15: {json.dumps(map_graph_mem)}")
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -132,7 +132,7 @@ def test_rotation_and_finalize_match_jax(tmp_path):
 def test_unported_options_raise(tmp_path, monkeypatch):
     for kw in ({"accumulate_impl": "sample_tile"},
                {"sparse_impl": "sample_tile"}):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="not to be ported"):
             TSDFMap(config=MapConfig(**kw), device="cpu")
     # ported since: the sparse backend, packed ingest, the .grid dump,
     # device marching cubes and carving
@@ -326,3 +326,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert TSDFMap().device == torch.device("cuda")
     assert TSDFMap(device="cpu").device == torch.device("cpu")
+
+
+def test_version_matches_jax():
+    """The port carries the JAX package's version (its own copy of it)."""
+    import chad_tsdf_tpu
+    import chad_tsdf_tpu_torch
+    assert chad_tsdf_tpu_torch.__version__ == chad_tsdf_tpu.__version__

@@ -9,10 +9,12 @@ port's ``pallas`` scan meets the 1e-4 gate against the JAX ``xla`` scan and
 1e-3 per weight against the JAX ``pallas`` one).
 
 On the card ``insert_steps_scan`` replays a captured CUDA graph
-(``core.integrate.StepGraph``).  Here a stand-in graph whose replay re-runs
-the captured body in Python drives the same code: the static copies, the
-carried fields, the fallback decided by the first insert and the cache,
-bit-equal to a loop of ``insert_step``; and a failed capture raises."""
+(``core.graph.InsertGraph`` on a copy of the state, the fused/tile fallback
+an IF node decided on the device).  Here a stand-in graph whose replay
+re-runs the captured body in Python drives the same code: the state copy,
+the carried fields, the fallback's branch (the IF node's plain version)
+and the cache, bit-equal to a loop of ``insert_step``; and a failed capture
+raises."""
 
 import contextlib
 import dataclasses
@@ -27,8 +29,8 @@ from chad_tsdf_tpu.config import MapConfig as JaxMapConfig
 from chad_tsdf_tpu.core import integrate as j_integrate
 from chad_tsdf_tpu.core.state import create_state as j_create_state
 from chad_tsdf_tpu_torch.config import MapConfig
-from chad_tsdf_tpu_torch.core import integrate
-from chad_tsdf_tpu_torch.core.state import (create_state,
+from chad_tsdf_tpu_torch.core import graph, integrate
+from chad_tsdf_tpu_torch.core.state import (clone_state, create_state,
                                             origin_blocks_for_position)
 from tests.test_torch_fused import compare
 
@@ -144,7 +146,7 @@ def test_steps_scan_matches_jax(impl, cloud, jax_scans):
 
 class _StandInGraph:
     """A ``torch.cuda.CUDAGraph`` stand-in; ``replay`` is set to the
-    captured body once the :class:`StepGraph` exists."""
+    captured body once the capture is done."""
 
     def replay(self):
         raise AssertionError("replayed before capture")
@@ -152,21 +154,26 @@ class _StandInGraph:
 
 @pytest.fixture
 def stand_in_graphs(monkeypatch):
-    """Send ``insert_steps_scan`` on the CPU through ``StepGraph`` with a
+    """Send ``insert_steps_scan`` on the CPU through ``InsertGraph`` with a
     stand-in graph that re-runs its body (the stand-in's "capture" runs it
-    once on the static copies, which every ``run`` overwrites)."""
-    monkeypatch.setattr(integrate, "_use_graph", lambda device: True)
+    once and puts the graph's state copy back: a capture records, it does
+    not run)."""
+    monkeypatch.setattr(graph, "use_graph", lambda device: True)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
     monkeypatch.setattr(torch.cuda, "graph",
                         lambda g: contextlib.nullcontext())
-    init = integrate.StepGraph.__init__
+    capture = graph.InsertGraph.capture
 
-    def capture(self, *args, **kw):
-        init(self, *args, **kw)
-        self.graph.replay = self._step
+    def stand_in_capture(self):
+        saved = clone_state(self.state)
+        capture(self)
+        for f in FIELDS:
+            getattr(self.state, f).copy_(getattr(saved, f))
+        self.graph.replay = lambda: self._step(eager=False)
 
-    monkeypatch.setattr(integrate.StepGraph, "__init__", capture)
-    monkeypatch.setattr(integrate, "_GRAPHS", {})
+    monkeypatch.setattr(graph.InsertGraph, "capture", stand_in_capture)
+    monkeypatch.setattr(integrate, "_GRAPHS",
+                        integrate.GraphCache(integrate.MAX_GRAPH_BYTES))
     return integrate._GRAPHS
 
 
@@ -175,7 +182,7 @@ def stand_in_graphs(monkeypatch):
 def test_step_graph_equals_loop(impl, cloud, stand_in_graphs):
     """Bit-equal to a loop of ``insert_step`` (tests/test_integrate.py's
     test for the JAX scan), then once more from that state through the
-    cached graph."""
+    cached graph, whose every rep is a replay."""
     cfg = _cfg(impl)
     pts = _sphere(CLOUDS[cloud])
     scan = _port_scan(cfg, pts)
@@ -183,10 +190,12 @@ def test_step_graph_equals_loop(impl, cloud, stand_in_graphs):
     _bit_equal(scan, loop)
     (g,) = stand_in_graphs.values()
     fallback = impl in ("fused", "tile") and cloud == "sparse"
-    assert g.fallback == fallback and g.replays == REPS - 1
+    assert (int(scan.tile_overflow) > 0) == fallback
+    assert g.replays == REPS - 1
+    assert set(g.body_launches) == set()     # no kernel on the CPU
     scan = _port_scan(cfg, pts, 2, scan)
     _bit_equal(scan, _port_loop(cfg, pts, 2, loop))
-    assert len(stand_in_graphs) == 1 and g.replays == REPS
+    assert len(stand_in_graphs) == 1 and g.replays == REPS - 1 + 2
 
 
 def test_steps_scan_reps(stand_in_graphs):
@@ -195,7 +204,7 @@ def test_steps_scan_reps(stand_in_graphs):
     cfg = _cfg("fused")
     pts = _sphere(CLOUDS["sparse"])
     _bit_equal(_port_scan(cfg, pts, 1), _port_loop(cfg, pts, 1))
-    assert not stand_in_graphs
+    assert not len(stand_in_graphs)
     state = create_state(cfg, _origin(cfg), "cpu")
     assert _port_scan(cfg, pts, 0, state) is state
     with pytest.raises(ValueError):
@@ -222,6 +231,6 @@ def test_failed_capture_raises(monkeypatch, stand_in_graphs):
     monkeypatch.setattr(integrate, "STAGE_HOOK", hook)
     with pytest.raises(RuntimeError, match="capturing"):
         _port_scan(_cfg("fused"), _sphere(CLOUDS["dense"]))
-    assert not stand_in_graphs
+    assert not len(stand_in_graphs)
     assert ("capture", None) in seen
     assert integrate.STAGE_HOOK is hook
