@@ -104,8 +104,9 @@ class MapConfig:
     sparse_points_per_block: float = 64.0
     # sparse backend: 'seg' = voxel-sorted segment reduction + compacted
     # scatter (core/integrate.insert_step_sparse_seg) — no tiles, no
-    # fallback, tile_overflow 0 by construction; 'sample_tile' kept as the
-    # previous tiling approach
+    # fallback, tile_overflow 0 by construction; 'sample_tile' = global
+    # sample sort + K4 over 1024-sample tiles of the sorted stream
+    # (core/integrate.insert_step_sample_tiled), with the sort fallback
     sparse_impl: str = "seg"
     # distinct-block-list capacity per 1024-SAMPLE tile of the sample_tile
     # path (ops/tile_accum over the block-sorted sample stream).  Sorted

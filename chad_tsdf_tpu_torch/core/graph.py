@@ -15,11 +15,13 @@ count as an i32[] tensor):
 2. the insert of ``core/integrate.py`` ``insert_body`` under the config's
    backend, its directory and counters written back into the state (the
    pools are updated in place);
-3. under ``fused`` and ``tile``, the fallback as a CUDA conditional IF node
-   on the count of uncovered samples (``ops/conditional.py``): a one-thread
-   kernel sets the node's handle on the device, and the node's body (the
-   sample grids, K4, the sort-based ``update_pool`` through K5) runs only
-   where the count is positive — ``lax.cond`` itself, with no host read;
+3. under ``fused``, ``tile`` and ``sample_tile``, the fallback as a CUDA
+   conditional IF node on the count of uncovered samples
+   (``ops/conditional.py``): a one-thread kernel sets the node's handle on
+   the device, and the node's body (the uncovered samples — under
+   ``fused`` the sample grids and K4 first — sorted, then the sort-based
+   ``update_pool`` through K5) runs only where the count is positive —
+   ``lax.cond`` itself, with no host read;
 4. the carve (``core/carve.py``), when the map carves;
 5. the metrics into a static i32 vector.
 
@@ -122,7 +124,7 @@ class InsertGraph:
         if self.packed:
             pts = integrate.unpack_points(integrate.pack_points_device(
                 pts, self.position, cfg.sdf_res), self.position, cfg)
-        new, met, tile_ovf, make_grids = integrate.insert_body(
+        new, met, tile_ovf, make_fallback = integrate.insert_body(
             st, pts, self.n_points, self.position, cfg)
         integrate.write_back(st, new)
         n_ins = len(INSERT_KEYS)
@@ -131,7 +133,8 @@ class InsertGraph:
             def fallback():
                 before = dict(kernels.LAUNCHES)
                 grown = {"n_new_blocks": self.out[2], "n_blocks": self.out[3]}
-                fb = integrate._apply_fallback(make_grids, st, grown, cfg)
+                fb = integrate._apply_fallback(make_fallback, st, grown,
+                                               cfg)
                 integrate.write_back(st, fb)
                 self.out[2:4].copy_(torch.stack([grown["n_new_blocks"],
                                                  grown["n_blocks"]]))

@@ -1,5 +1,4 @@
-"""The insert pipeline — PyTorch port of ``chad_tsdf_tpu/core/integrate.py``
-(all but the ``sample_tile`` backend).
+"""The insert pipeline — PyTorch port of ``chad_tsdf_tpu/core/integrate.py``.
 
 Mirrors the reference hot path ``TSDFMap::insert`` (reference:
 src/chad/tsdf.cpp:39-75):
@@ -12,13 +11,18 @@ src/chad/tsdf.cpp:39-75):
   Octree::insert DDA  octree.hpp:92-152   ->  K1: DDA + sd + tile partials
   per-voxel upsert    octree.hpp:153-163  ->  directory update + K3 merge
 
-Five backends, chosen by ``MapConfig.accumulate_impl``:
+Six backends, chosen by ``MapConfig.accumulate_impl``:
 
 * ``fused`` (``auto`` on CUDA): :func:`insert_step_fused` — sort, normals,
   K1, then :func:`update_pool_tiled` (K3).  Samples beyond a tile's block
   list are recovered through K4 and the sort-based :func:`update_pool`.
 * ``tile``: :func:`insert_step_tiled` — sort, normals, the plain DDA's
   sample grids, K4, K3, and the same fallback.
+* ``sample_tile`` (a ``sparse_impl`` choice for sparse scans):
+  :func:`insert_step_sample_tiled` — sample grids, one global sample sort,
+  K4 over 1024-sample tiles of the sorted stream (list of
+  ``sparse_tile_nb`` blocks), K3; samples beyond a tile's list go through
+  the sort-based :func:`update_pool`.
 * ``pallas``: sample grids, one global sample sort, and :func:`update_pool`
   through K5.
 * ``xla`` (``auto`` on CPU): as ``pallas``, with the scatter-form
@@ -42,8 +46,9 @@ Counters and overflow semantics are those of the JAX package.  Where the
 JAX package branches on a device value (``lax.cond`` / ``lax.switch``), the
 port either computes both ways unconditionally (the directory rebuild is
 one sort of <= block_capacity + touched_capacity keys), sizes the work
-statically and masks (K3's and K5's grids), or, for the fused and tile
-paths' fallback, leaves the branch to the caller (:func:`insert_body`).
+statically and masks (K3's and K5's grids), or, for the fallback of the
+fused, tile and sample-tiled paths, leaves the branch to the caller
+(:func:`insert_body`).
 In a CUDA graph (``core/graph.py``, what ``TSDFMap.insert`` replays on the
 card) the branch is an IF node decided on the device
 (``ops/conditional.py``).  Eagerly, :func:`insert_step_deferred` returns
@@ -430,23 +435,25 @@ def update_pool_tiled(state: ActiveMapState, pkeys, psd, pw, tile_ovf,
 def insert_body(state: ActiveMapState, points, n_points, position,
                 config: MapConfig):
     """Integrate one padded point cloud into the active map, leaving the
-    fused and tile paths' fallback to the caller.
+    fallback of the fused, tile and sample-tiled paths to the caller.
 
     points: f32[N, 3] world points on the state's device, padded;
     n_points: the number of valid rows, an int or an i32[] tensor on the
     state's device (a CUDA graph replays with a new count in the same
     tensor); position: f32[3] scanner position.  Returns (new_state,
-    metrics dict of device scalars, tile_ovf, make_grids): under ``fused``
-    and ``tile`` the count of samples no tile's block list holds and the
-    closure that recomputes the fallback's grids (:func:`_apply_fallback`
-    runs it where the count is positive), under the other backends None
-    and None.
+    metrics dict of device scalars, tile_ovf, make_fallback): under
+    ``fused``, ``tile`` and ``sample_tile`` the count of samples no tile's
+    block list holds and the closure that makes the fallback's samples
+    (:func:`_apply_fallback` runs it where the count is positive), under
+    the other backends None and None.
     """
     impl = _accumulate_impl(config, state.device)
     if impl == "fused":
         return _fused_body(state, points, n_points, position, config)
     if impl == "tile":
         return _tiled_body(state, points, n_points, position, config)
+    if impl == "sample_tile":
+        return _sample_tiled_body(state, points, n_points, position, config)
     if impl in ("pallas", "xla"):
         # global sample sort; update_pool picks K5 or the scatter form
         batch = compute_samples(points, n_points, position,
@@ -458,33 +465,30 @@ def insert_body(state: ActiveMapState, points, n_points, position,
         state, metrics = insert_step_sparse_seg(state, points, n_points,
                                                 position, config)
         return state, metrics, None, None
-    raise NotImplementedError(
-        f"accumulate_impl={impl!r} is not ported to PyTorch and is not to "
-        "be ported (ROADMAP.md: the JAX package keeps it as its previous "
-        "tiling approach); use 'auto', 'fused', 'tile', 'pallas', 'xla' or "
-        "'seg'")
+    raise ValueError(f"unknown accumulate_impl {impl!r}")
 
 
 def insert_step_deferred(state: ActiveMapState, points, n_points,
                          position, config: MapConfig):
-    """:func:`insert_body` with the fused and tile paths' fallback
-    deferred.  Returns (new_state, metrics dict of device scalars, tail):
-    ``tail`` is None, or the :class:`FallbackTail` that must be settled
-    (:func:`settle`) before anything else reads or updates the state.
+    """:func:`insert_body` with the fallback of the fused, tile and
+    sample-tiled paths deferred.  Returns (new_state, metrics dict of
+    device scalars, tail): ``tail`` is None, or the :class:`FallbackTail`
+    that must be settled (:func:`settle`) before anything else reads or
+    updates the state.
     """
     _stage("host prep + upload")
-    state, metrics, tile_ovf, make_grids = insert_body(
+    state, metrics, tile_ovf, make_fallback = insert_body(
         state, points, n_points, position, config)
     tail = None if tile_ovf is None else \
-        FallbackTail(tile_ovf, make_grids, config)
+        FallbackTail(tile_ovf, make_fallback, config)
     return state, metrics, tail
 
 
 def insert_step(state: ActiveMapState, points, n_points, position,
                 config: MapConfig):
-    """:func:`insert_step_deferred`, settled at once: the fused and tile
-    paths wait here for their count of uncovered samples.  Returns
-    (new_state, metrics dict of device scalars)."""
+    """:func:`insert_step_deferred`, settled at once: the fused, tile and
+    sample-tiled paths wait here for their count of uncovered samples.
+    Returns (new_state, metrics dict of device scalars)."""
     state, metrics, tail = insert_step_deferred(state, points, n_points,
                                                 position, config)
     if tail is not None:
@@ -681,36 +685,45 @@ def insert_step_sparse_seg(state: ActiveMapState, points, n_points,
     return new_state, metrics
 
 
-def _fallback(state: ActiveMapState, s_bkey, s_okey, sd, ovfmask,
-              config: MapConfig):
-    """The samples a tile's block list could not cover (``ovfmask``) go
-    through the sort-based :func:`update_pool`; returns (state, n_new)."""
+def _masked_grids(s_bkey, s_okey, sd, ovfmask, config: MapConfig):
+    """The fallback's samples of the fused and tile paths: the sample
+    grids' samples that ``ovfmask`` marks as uncovered, as flat (bkey,
+    payload) with INT32_MAX keys and zero payloads elsewhere."""
     fb_key = torch.where(ovfmask, s_bkey, INT32_MAX).reshape(-1)
     payload = torch.where(ovfmask, pack_payload(s_okey, sd, config.sdf_trunc),
                           0)
-    zero = _zero(s_bkey.device)
-    batch = sort_samples(SampleBatch(fb_key, payload.reshape(-1), zero, zero))
+    return fb_key, payload.reshape(-1)
+
+
+def _fallback(state: ActiveMapState, fb_key, payload, config: MapConfig):
+    """The samples no tile's block list covered (``fb_key`` INT32_MAX
+    elsewhere) go, sorted again, through the sort-based
+    :func:`update_pool`; returns (state, n_new)."""
+    zero = _zero(fb_key.device)
+    batch = sort_samples(SampleBatch(fb_key, payload, zero, zero))
     state, m = update_pool(state, batch, config)
     return state, m["n_new_blocks"]
 
 
 class FallbackTail:
-    """The undecided end of a fused or tile insert (the JAX package's
-    ``lax.cond`` on ``tile_ovf``, integrate.py:652-675).
+    """The undecided end of a fused, tile or sample-tiled insert (the JAX
+    package's ``lax.cond`` on ``tile_ovf``, integrate.py:652-675 and
+    :730-735).
 
     Whether any sample fell outside its tile's block list is known only on
     the device.  Instead of reading that count on the host, the insert
     copies it into pinned host memory (``non_blocking``) and records an
     event behind the copy; the tail keeps what the fallback needs alive
-    (``make_grids``, a closure over the sorted points and normals, or over
-    the tile path's grids).  :func:`settle` waits for the event, normally
+    (``make_fallback``, a closure over the sorted points and normals, over
+    the tile path's grids, or over the sample-tiled path's sorted
+    samples and K4's mask).  :func:`settle` waits for the event, normally
     long done by then, and runs the fallback only when the count is
     non-zero.  The pool updates keep the JAX order as long as the tail is
     settled before anything else touches the state.
     """
 
-    def __init__(self, tile_ovf, make_grids, config: MapConfig):
-        self.make_grids = make_grids
+    def __init__(self, tile_ovf, make_fallback, config: MapConfig):
+        self.make_fallback = make_fallback
         self.config = config
         if tile_ovf.device.type == "cuda":
             self.flag = torch.empty((), dtype=torch.int32, pin_memory=True)
@@ -736,15 +749,14 @@ def settle(tail: FallbackTail, state: ActiveMapState, metrics) -> \
     differences, so metrics summed over several clouds stay sums)."""
     if not tail.needed():
         return state
-    return _apply_fallback(tail.make_grids, state, metrics, tail.config)
+    return _apply_fallback(tail.make_fallback, state, metrics, tail.config)
 
 
-def _apply_fallback(make_grids, state: ActiveMapState, metrics,
+def _apply_fallback(make_fallback, state: ActiveMapState, metrics,
                     config: MapConfig) -> ActiveMapState:
     """:func:`settle`'s fallback, run unconditionally."""
     n_blocks0 = state.n_blocks
-    s_bkey, s_okey, sd, ovfmask = make_grids()
-    state, extra_new = _fallback(state, s_bkey, s_okey, sd, ovfmask, config)
+    state, extra_new = _fallback(state, *make_fallback(), config)
     metrics["n_new_blocks"] = metrics["n_new_blocks"] + extra_new
     metrics["n_blocks"] = metrics["n_blocks"] + (state.n_blocks - n_blocks0)
     return state
@@ -762,16 +774,16 @@ def insert_step_fused(state: ActiveMapState, points, n_points,
     through the sort-based :func:`update_pool`.  Returns (state, metrics,
     tail).
     """
-    state, metrics, tile_ovf, make_grids = _fused_body(
+    state, metrics, tile_ovf, make_fallback = _fused_body(
         state, points, n_points, position, config)
-    return state, metrics, FallbackTail(tile_ovf, make_grids, config)
+    return state, metrics, FallbackTail(tile_ovf, make_fallback, config)
 
 
 def _fused_body(state: ActiveMapState, points, n_points, position,
                 config: MapConfig):
     """The fused insert without its tail: (state, metrics, tile_ovf,
-    make_grids), the count of uncovered samples and the closure that
-    recomputes the fallback's grids."""
+    make_fallback), the count of uncovered samples and the closure that
+    recomputes the grids and makes the fallback's samples."""
     px, py, pz = points[:, 0], points[:, 1], points[:, 2]
     origin_blocks = state.origin_blocks
     bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
@@ -789,16 +801,16 @@ def _fused_body(state: ActiveMapState, points, n_points, position,
                                        n_valid, samp_overflow, pt_overflow,
                                        config)
 
-    def make_grids():
+    def make_fallback():
         s_bkey, s_okey, sd, _, _ = sample_grids(
             px, py, pz, nx, ny, nz, sb, position, origin_blocks, config)
         ovfmask = tile_accum.tile_partials(s_bkey, s_okey, sd,
                                            config.tile_nb,
                                            config.sdf_trunc)[3] != 0
-        return s_bkey, s_okey, sd, ovfmask
+        return _masked_grids(s_bkey, s_okey, sd, ovfmask, config)
 
     metrics["host_reads"] = 0
-    return state, metrics, tile_ovf, make_grids
+    return state, metrics, tile_ovf, make_fallback
 
 
 def insert_step_tiled(state: ActiveMapState, points, n_points,
@@ -809,9 +821,9 @@ def insert_step_tiled(state: ActiveMapState, points, n_points,
     :func:`update_pool` when the returned :class:`FallbackTail` is settled,
     as in the fused path; the tail keeps the grids and K4's mask.  Returns
     (state, metrics, tail)."""
-    state, metrics, tile_ovf, make_grids = _tiled_body(
+    state, metrics, tile_ovf, make_fallback = _tiled_body(
         state, points, n_points, position, config)
-    return state, metrics, FallbackTail(tile_ovf, make_grids, config)
+    return state, metrics, FallbackTail(tile_ovf, make_fallback, config)
 
 
 def _tiled_body(state: ActiveMapState, points, n_points, position,
@@ -831,7 +843,73 @@ def _tiled_body(state: ActiveMapState, points, n_points, position,
                                        n_valid, samp_overflow, pt_overflow,
                                        config)
     metrics["host_reads"] = 0
-    return state, metrics, tile_ovf, lambda: (s_bkey, s_okey, sd, ovfmask)
+    return state, metrics, tile_ovf, lambda: _masked_grids(
+        s_bkey, s_okey, sd, ovfmask, config)
+
+
+def insert_step_sample_tiled(state: ActiveMapState, points, n_points,
+                             position, config: MapConfig):
+    """Sparse-cloud insert over tiles of SAMPLES (the JAX package's
+    ``insert_step_sample_tiled``, integrate.py:681-739): sample grids ->
+    one global sample sort -> K4 over 1024-sample tiles of the sorted
+    stream -> K3 merge.
+
+    Per-point tiles (``fused``, ``tile``) assume many samples per touched
+    block; a LiDAR scan (a dozen points a block) overflows every tile's
+    list.  Cut the block-sorted samples into tiles instead: consecutive
+    samples touch at most 1024 / (samples per block) distinct blocks, so a
+    list of ``sparse_tile_nb`` (128) covers any cloud with >= 8 samples per
+    touched block.  Samples beyond a tile's list go through the sort-based
+    :func:`update_pool` (K5 on the card) when the returned
+    :class:`FallbackTail` is settled, counted in ``tile_overflow``.  The
+    sample capacity S = N x ``dda_steps`` must be a multiple of 1024 (the
+    JAX package asserts it; here K4's shape check raises).  Returns (state,
+    metrics, tail).
+    """
+    state, metrics, tile_ovf, make_fallback = _sample_tiled_body(
+        state, points, n_points, position, config)
+    return state, metrics, FallbackTail(tile_ovf, make_fallback, config)
+
+
+def _sample_tiled_body(state: ActiveMapState, points, n_points, position,
+                       config: MapConfig):
+    """The sample-tiled insert without its tail, as :func:`_fused_body`."""
+    batch = sort_samples(compute_samples(points, n_points, position,
+                                         state.origin_blocks, config))
+    _stage("sample sort")
+    return sample_tiled_update(state, batch, config)
+
+
+def sample_tiled_update(state: ActiveMapState, batch: SampleBatch,
+                        config: MapConfig):
+    """K4 and K3 over a block-sorted sample batch (:func:`sort_samples`):
+    K4 on the (1, S) grid of the batch's keys and unpacked payloads with a
+    list of ``sparse_tile_nb`` blocks, then :func:`update_pool_tiled`.
+    Returns (state, metrics, tile_ovf, make_fallback): the fallback's
+    samples are the batch's own keys and payloads where K4's mask is set,
+    INT32_MAX and 0 elsewhere (nothing is re-packed)."""
+    s = batch.bkey.shape[0]
+    s_okey, s_sd = unpack_payload(batch.payload, config.sdf_trunc)
+    n_valid = (batch.bkey != INT32_MAX).sum(dtype=torch.int32)
+    pkeys, psd, pw, ovfmask = tile_accum.tile_partials(
+        batch.bkey.reshape(1, s), s_okey.reshape(1, s), s_sd.reshape(1, s),
+        config.sparse_tile_nb, config.sdf_trunc)
+    ovf = ovfmask.reshape(-1) != 0
+    tile_ovf = ovf.sum(dtype=torch.int32)
+    _stage("K4 partials")
+    state, metrics = update_pool_tiled(state, pkeys, psd, pw, tile_ovf,
+                                       n_valid, batch.samp_overflow,
+                                       batch.pt_overflow, config)
+    _stage("K3 merge")
+
+    def make_fallback():
+        # masking punches INT32_MAX holes into the key runs: _fallback sorts
+        # again, so update_pool sees each block as one run
+        return (torch.where(ovf, batch.bkey, INT32_MAX),
+                torch.where(ovf, batch.payload, 0))
+
+    metrics["host_reads"] = 0
+    return state, metrics, tile_ovf, make_fallback
 
 
 def _accumulate_impl(config: MapConfig, device: torch.device) -> str:

@@ -26,7 +26,7 @@ Space carving (``carve_steps > 0``, core/carve.py) follows each insert.
 
 On the card each chunk of an insert is one CUDA graph replay
 (``core/graph.py`` ``InsertGraph``: the upload into the graph's input
-buffers, then the insert, its fused/tile fallback as an IF node decided on
+buffers, then the insert, its fallback as an IF node decided on
 the device, and the carve), as the JAX package issues one executable per
 chunk.  The graphs are the map's own, cached by (dispatched config, point
 bucket, packed ingest, carving) and bound to the map's active state, which
@@ -36,8 +36,8 @@ them; ``finalize_active``, ``merge`` and ``optimize_loop_closures`` leave
 the active state's tensors where they are.  The first insert of a key
 runs eagerly and captures the graph after it.
 
-On the CPU the insert is the eager loop, and the fused and tile backends
-end an insert with a deferred branch (core/integrate.py
+On the CPU the insert is the eager loop, and the fused, tile and
+sample_tile backends end an insert with a deferred branch (core/integrate.py
 ``FallbackTail``): the map settles it before anything else reads or
 updates the active state (the next insert, a rotation, ``state``,
 ``stats``, ``save``, ``raycast``, a checkpoint, a loop closure, or a read
@@ -46,15 +46,14 @@ of that insert's metrics).  No insert reads the device on the host.
 The map runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``; without a card the default raises rather
 than falling back to the CPU.  ``accumulate_impl`` may be ``auto``,
-``fused``, ``tile``, ``pallas``, ``xla`` or ``seg`` (core/integrate.py);
-under ``auto`` on CUDA each scan goes to the dense ``fused`` backend or,
-below ``sparse_points_per_block``, to ``sparse_impl``.
+``fused``, ``tile``, ``sample_tile``, ``pallas``, ``xla`` or ``seg``
+(core/integrate.py); under ``auto`` on CUDA each scan goes to the dense
+``fused`` backend or, below ``sparse_points_per_block``, to
+``sparse_impl`` (``seg``, or ``sample_tile``, ...).
 ``packed_ingest`` quantizes the points to int16 steps (on the card inside
 the insert's graph).  The sharded map
 (``parallel.ShardedTSDFMap``) is a subclass that keeps its active map in
-``state_stack``, one state per shard, and inserts eagerly.  Not to be
-ported (ROADMAP.md): the ``sample_tile`` backend, which raises
-NotImplementedError.
+``state_stack``, one state per shard, and inserts eagerly.
 """
 
 from __future__ import annotations
@@ -146,18 +145,6 @@ class LazyMetrics(collections.abc.MutableMapping):
         return repr(dict(self.materialize()))
 
 
-def _check_ported(config: MapConfig) -> None:
-    missing = []
-    for name in ("accumulate_impl", "sparse_impl"):
-        if getattr(config, name) == "sample_tile":
-            missing.append(f"{name}='sample_tile'")
-    if missing:
-        raise NotImplementedError(
-            f"not ported to PyTorch and not to be ported (ROADMAP.md: the "
-            f"JAX package keeps it as its previous tiling approach): "
-            f"{missing}")
-
-
 class TSDFMap:
     # inserts on the card replay CUDA graphs (module docstring); False
     # runs the eager loop there too, for comparisons
@@ -170,7 +157,6 @@ class TSDFMap:
         elif (sdf_res, sdf_trunc) != (config.sdf_res, config.sdf_trunc):
             config = dataclasses.replace(config, sdf_res=sdf_res,
                                          sdf_trunc=sdf_trunc)
-        _check_ported(config)
         self.config = config
         self.device = resolve_device(device)
         self.levels = dag.NodeLevels()
@@ -395,8 +381,9 @@ class TSDFMap:
         kernels pay off on dense clouds (many points per touched block);
         sparse outdoor scans run ``sparse_impl`` (``seg``: voxel-sorted
         segment sums and a scatter of unique voxels, no tile overflow by
-        construction).  The density is estimated on the host from a
-        subsample: one cheap ``np.unique`` per insert."""
+        construction; ``sample_tile``: K4 over tiles of the block-sorted
+        samples, with the sort fallback).  The density is estimated on the
+        host from a subsample: one cheap ``np.unique`` per insert."""
         if (self.config.accumulate_impl != "auto"
                 or self.device.type != "cuda" or len(chunk) == 0):
             return self.config

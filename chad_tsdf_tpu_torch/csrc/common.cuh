@@ -15,6 +15,14 @@
 // the accumulate slab once ranks are packed into the payloads, so a CTA
 // needs 107 KiB at K = 10, nb = 48 and two fit on an SM.
 //
+// The list may hold any number of blocks that shared memory allows (the
+// host checks tile_smem_words against kMaxTileSmemBytes).  Up to
+// kNarrowMaxNb the rank rides in the sample word's top 7 bits (pack_rank);
+// a wider list keeps a 16-bit rank per sample beside the words (TileSmem
+// rank), which costs K x 2 KiB more shared memory.  The stages are
+// templates on that choice (Wide), picked at launch from nb, so the narrow
+// kernels are the ones they were.
+//
 // It replaces the list/rank/accumulate stages of the TPU kernels
 // chad_tsdf_tpu/ops/tile_accum.py:_tile_kernel and
 // chad_tsdf_tpu/ops/fused_integrate.py:_kernel (:175-325).
@@ -33,8 +41,11 @@ constexpr int kInt32Max = 0x7fffffff;
 constexpr int kSlab = 16;          // list ranks accumulated per pass
 constexpr int kRowLen = 512;       // voxels per 8x8x8 block
 constexpr int kRegRows = 12;       // rows the list phase holds in registers
-constexpr int kMaxNb = 127;        // the rank field of a packed sample: 7 bits
+constexpr int kNarrowMaxNb = 127;  // the rank field of a packed sample: 7 bits
 constexpr int kSkip = -1;          // packed sample that no rank takes
+constexpr unsigned short kWideSkip = 0xFFFF;   // wide rank that none takes
+// dynamic shared memory a CTA may opt into on sm_90 (227 KiB)
+constexpr int kMaxTileSmemBytes = 227 * 1024;
 static_assert(kCols == 2, "the tile phases load column pairs as int2");
 
 __device__ __forceinline__ int spread3_10(int x) {
@@ -98,20 +109,30 @@ __device__ __forceinline__ int block_min(int v, int* s_red) {
   return out;
 }
 
+// Whether a list of nb blocks needs the separate 16-bit ranks.
+__host__ __device__ inline bool tile_wide(int nb) {
+  return nb > kNarrowMaxNb;
+}
+
 // Dynamic shared memory of tile_accumulate's callers, in 32-bit words: the
-// keys, later overlaid by the accumulate slab; the payloads; the warp lists;
-// the list; scratch.  k = 10, nb = 48: 27,488 words (107 KiB), so two CTAs
-// fit on an SM.
+// keys, later overlaid by the accumulate slab; the payloads; a wide list's
+// 16-bit ranks; the warp lists; the list; scratch.  k = 10, nb = 48:
+// 27,488 words (107 KiB), so two CTAs fit on an SM; k = 1, nb = 128:
+// 20,144 words (78.7 KiB); k = 10, nb = 1024: 49,200 words (192.2 KiB).
 __host__ __device__ inline int tile_smem_words(int k, int nb) {
   const int keys = k * kTile, slab = 2 * kSlab * kRowLen;
-  return (keys > slab ? keys : slab) + keys + kTileWarps * nb + nb + 48;
+  const int ranks = tile_wide(nb) ? keys / 2 : 0;
+  return (keys > slab ? keys : slab) + keys + ranks + kTileWarps * nb + nb +
+         48;
 }
 
 struct TileSmem {
   int* key;    // [k * kTile] block key per sample, kInt32Max = invalid
   int* accq;   // [kSlab * kRowLen] quantized sd sums of a slab; aliases key
   int* accw;   // [kSlab * kRowLen] sample counts of a slab, after accq
-  int* pay;    // [k * kTile] pack_payload(offset, q), then with its rank
+  int* pay;    // [k * kTile] pack_payload(offset, q), then (narrow) with
+               // its rank
+  unsigned short* rank;   // wide lists only: [k * kTile] rank per sample
   int* wl;     // [kTileWarps * nb] each warp's list
   int* list;   // [nb] the tile's block list, ascending
   int* red;    // [48] reduction scratch and counters
@@ -124,17 +145,46 @@ __device__ __forceinline__ TileSmem tile_smem(int* base, int k, int nb) {
   s.accq = base;
   s.accw = base + kSlab * kRowLen;
   s.pay = base + (keys > slab ? keys : slab);
+  s.rank = nullptr;
   s.wl = s.pay + keys;
+  if (tile_wide(nb)) {
+    s.rank = reinterpret_cast<unsigned short*>(s.wl);
+    s.wl += keys / 2;
+  }
   s.list = s.wl + kTileWarps * nb;
   s.red = s.list + nb;
   return s;
 }
 
-// Sample word of the accumulate: rank (7 bits) << 25 | pack_payload's 25
-// bits; kSkip (rank field 127) is taken by no rank.  (The rank replaces
-// the key, so the keys' shared memory can hold the accumulate slab.)
+// Sample word of a narrow list's accumulate: rank (7 bits) << 25 |
+// pack_payload's 25 bits; kSkip (rank field 127) is taken by no rank.  (The
+// rank replaces the key, so the keys' shared memory can hold the
+// accumulate slab.)
 __device__ __forceinline__ int pack_rank(int rank, int pay) {
   return (int)(((unsigned)rank << 25) | ((unsigned)pay & 0x1FFFFFFu));
+}
+
+// Records sample idx's rank in the list; rank < 0: the sample adds to no
+// row.  A narrow list packs it into the sample word, a wide one keeps it
+// in s.rank and leaves the word as it is.
+template <bool Wide>
+__device__ __forceinline__ void set_rank(TileSmem s, int idx, int rank) {
+  if constexpr (Wide) {
+    s.rank[idx] = rank < 0 ? kWideSkip : (unsigned short)rank;
+  } else {
+    s.pay[idx] = rank < 0 ? kSkip : pack_rank(rank, s.pay[idx]);
+  }
+}
+
+// Sample idx's rank as set_rank recorded it (>= nb for a skipped sample);
+// p is its sample word.
+template <bool Wide>
+__device__ __forceinline__ int get_rank(TileSmem s, int idx, unsigned p) {
+  if constexpr (Wide) {
+    return (int)s.rank[idx];
+  } else {
+    return (int)(p >> 25);
+  }
 }
 
 // This thread's first sample column; its columns are tile_col0() + c,
@@ -236,11 +286,12 @@ __device__ __forceinline__ int list_live(const int* list, int nb) {
   return lo;
 }
 
-// tile_ranks: packs each of this thread's samples with its rank in s.list
-// (pack_rank), or kSkip where the sample is invalid or not covered (key
+// tile_ranks: records each of this thread's samples' rank in s.list
+// (set_rank), or none where the sample is invalid or not covered (key
 // beyond the list's last entry); returns, per column, the bit mask over r
 // of the valid uncovered samples.  A ray's consecutive samples mostly share
 // a block, so the last lookup is reused; a lookup searches the live prefix.
+template <bool Wide>
 static __device__ ColMask tile_ranks(TileSmem s, int k, int nb) {
   // covered <=> key among the list <=> key <= the list's last entry
   const int last = s.list[nb - 1];
@@ -253,8 +304,7 @@ static __device__ ColMask tile_ranks(TileSmem s, int k, int nb) {
     for (int r = 0; r < k; ++r) {
       const int idx = r * kTile + tile_col0() + c;
       const int key = s.key[idx];
-      const int pay = s.pay[idx];
-      int packed = kSkip;
+      int rank = -1;
       if (key != kInt32Max) {
         if (key <= last) {
           if (key != ck) {
@@ -266,19 +316,20 @@ static __device__ ColMask tile_ranks(TileSmem s, int k, int nb) {
             ck = key;
             cr = lo;
           }
-          packed = pack_rank(cr, pay);
+          rank = cr;
         } else {
           ovf.m[c] |= 1u << r;
         }
       }
-      s.pay[idx] = packed;
+      set_rank<Wide>(s, idx, rank);
     }
   }
   return ovf;
 }
 
 // tile_slab_accumulate: the tile's partial rows psd/pw (nb x 512) from the
-// packed samples in s.pay, with sd sums dequantized by dscale, one slab of
+// samples in s.pay and their ranks (get_rank), with sd sums dequantized by
+// dscale, one slab of
 // kSlab ranks at a time.  Only the live rows (list entry != kInt32Max, a
 // prefix of the list) are accumulated and written; dead rows of psd/pw are
 // left as they were, and their readers skip them.  With all_rows every
@@ -286,6 +337,7 @@ static __device__ ColMask tile_ranks(TileSmem s, int k, int nb) {
 // are 32-bit integer atomics in shared memory, order free, so the result
 // is the same on every run; rows are written 16 bytes a thread.  Starts
 // with a barrier: the slab overlays the keys.
+template <bool Wide>
 static __device__ void tile_slab_accumulate(TileSmem s, int k, int nb,
                                             int tile, float dscale,
                                             float* psd, float* pw,
@@ -306,8 +358,9 @@ static __device__ void tile_slab_accumulate(TileSmem s, int k, int nb,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       for (int r = 0; r < k; ++r) {
-        const unsigned p = (unsigned)s.pay[r * kTile + tile_col0() + c];
-        const int rr = (int)(p >> 25) - r0;
+        const int idx = r * kTile + tile_col0() + c;
+        const unsigned p = (unsigned)s.pay[idx];
+        const int rr = get_rank<Wide>(s, idx, p) - r0;
         if (rr >= 0 && rr < rows) {
           const int cell = rr * kRowLen + ((p >> 16) & 0x1FF);
           atomicAdd(&s.accq[cell], (int)(short)(p & 0xFFFFu));
@@ -333,7 +386,8 @@ static __device__ void tile_slab_accumulate(TileSmem s, int k, int nb,
 // The block list, coverage rule, ranks and live partial rows of one tile:
 // writes the list to pkeys and the live partial rows to psd/pw, and returns,
 // per column of this thread, the bit mask over r of the valid samples that
-// are NOT covered.
+// are NOT covered.  Wide must be tile_wide(nb).
+template <bool Wide>
 static __device__ ColMask tile_accumulate(TileSmem s, int k, int nb, int tile,
                                           float dscale, int* pkeys,
                                           float* psd, float* pw) {
@@ -341,9 +395,18 @@ static __device__ ColMask tile_accumulate(TileSmem s, int k, int nb, int tile,
   for (int i = threadIdx.x; i < nb; i += kTileThreads) {
     pkeys[(size_t)tile * nb + i] = s.list[i];
   }
-  const ColMask ovf = tile_ranks(s, k, nb);
-  tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw, false);
+  const ColMask ovf = tile_ranks<Wide>(s, k, nb);
+  tile_slab_accumulate<Wide>(s, k, nb, tile, dscale, psd, pw, false);
   return ovf;
+}
+
+// Whether a tile kernel's arguments are in range: 1 <= k <= 32 (the
+// column masks' bits), nb >= 1, and the shared memory a CTA needs within
+// what it may opt into.
+inline bool tile_args_ok(int k, int nb) {
+  return k >= 1 && k <= 32 && nb >= 1 &&
+         (long long)tile_smem_words(k, nb) * (long long)sizeof(int) <=
+             kMaxTileSmemBytes;
 }
 
 // Opt a tile kernel into the shared memory it needs, with the SM's carveout
@@ -356,6 +419,20 @@ inline cudaError_t tile_kernel_smem(Kernel kern, int bytes) {
   return cudaFuncSetAttribute(kern,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// Launches a tile kernel, one CTA of kTileThreads per tile, with the shared
+// memory of (k, nb); the caller has checked tile_args_ok.  Returns the
+// launch's error code.
+template <typename Kernel, typename... Args>
+inline int launch_tile_kernel(Kernel kern, int tiles, int k, int nb,
+                              cudaStream_t stream, Args... args) {
+  const int smem = tile_smem_words(k, nb) * (int)sizeof(int);
+  cudaError_t err = tile_kernel_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (tiles == 0) return 0;
+  kern<<<tiles, kTileThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace chad

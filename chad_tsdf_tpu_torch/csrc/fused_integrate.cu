@@ -88,6 +88,7 @@ __device__ __forceinline__ Axis axis_setup(float p, float d, float res,
   return a;
 }
 
+template <bool Wide>
 __global__ void __launch_bounds__(kTileThreads, 2)
 fused_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
                   const float* __restrict__ pz, const float* __restrict__ nx,
@@ -181,7 +182,8 @@ fused_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
   }
   __syncthreads();
 
-  const ColMask ovf = tile_accumulate(s, k, nb, tile, dscale, pkeys, psd, pw);
+  const ColMask ovf = tile_accumulate<Wide>(s, k, nb, tile, dscale, pkeys,
+                                            psd, pw);
 
   int n_ovf = 0;
 #pragma unroll
@@ -206,18 +208,20 @@ extern "C" int chad_fused_tile_partials(
     const int* origin_voxel, int n, int k, int nb, float res, float res_recip,
     float trunc, int extent, float qscale, float dscale, int* pkeys,
     float* psd, float* pw, int* counts, void* stream) {
-  if (nb < 1 || nb > chad::kMaxNb || k < 1 || k > 32)
-    return (int)cudaErrorInvalidValue;
-  const int smem = chad::tile_smem_words(k, nb) * (int)sizeof(int);
-  cudaError_t err = chad::tile_kernel_smem(chad::fused_tile_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (!chad::tile_args_ok(k, nb)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   const int tiles = n / chad::kTile;
-  if (tiles == 0) return 0;
-  chad::fused_tile_kernel<<<tiles, chad::kTileThreads, smem,
-                            (cudaStream_t)stream>>>(
-      px, py, pz, nx, ny, nz, sb, position, origin_voxel, k, nb, res,
-      res_recip, trunc, extent, qscale, dscale, pkeys, psd, pw, counts);
-  CHAD_RETURN_LAUNCH_ERROR();
+  return chad::tile_wide(nb)
+      ? chad::launch_tile_kernel(chad::fused_tile_kernel<true>, tiles, k, nb,
+                                 s, px, py, pz, nx, ny, nz, sb, position,
+                                 origin_voxel, k, nb, res, res_recip, trunc,
+                                 extent, qscale, dscale, pkeys, psd, pw,
+                                 counts)
+      : chad::launch_tile_kernel(chad::fused_tile_kernel<false>, tiles, k, nb,
+                                 s, px, py, pz, nx, ny, nz, sb, position,
+                                 origin_voxel, k, nb, res, res_recip, trunc,
+                                 extent, qscale, dscale, pkeys, psd, pw,
+                                 counts);
 }
 
 extern "C" const char* chad_error_string(int err) {

@@ -171,6 +171,7 @@ __device__ __forceinline__ void load_tile(TileSmem s, const int* bkey,
   __syncthreads();
 }
 
+template <bool Wide>
 __global__ void __launch_bounds__(kTileThreads, 2)
 micro_stagea_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
                     const float* __restrict__ sd, int n, int k, int nb,
@@ -183,7 +184,7 @@ micro_stagea_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
   const int tile = blockIdx.x;
   load_tile(s, bkey, okey, sd, (size_t)tile * kTile, n, k, qscale);
   if (mode == kFull) {
-    tile_accumulate(s, k, nb, tile, dscale, pkeys, psd, pw);
+    tile_accumulate<Wide>(s, k, nb, tile, dscale, pkeys, psd, pw);
     return;
   }
   int head = kInt32Max;
@@ -200,8 +201,8 @@ micro_stagea_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
   }
 
   if (mode == kPFull) {
-    tile_ranks(s, k, nb);
-    tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw, false);
+    tile_ranks<Wide>(s, k, nb);
+    tile_slab_accumulate<Wide>(s, k, nb, tile, dscale, psd, pw, false);
     return;
   }
   if (mode == kMxu) {
@@ -210,11 +211,11 @@ micro_stagea_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
       for (int c = 0; c < kCols; ++c) {
         const int si = j * kTile + tile_col0() + c;
         const int key = s.key[si];
-        s.pay[si] = key == kInt32Max
-            ? kSkip : pack_rank(min(max(key, 0), nb - 1), s.pay[si]);
+        set_rank<Wide>(s, si, key == kInt32Max ? -1
+                                               : min(max(key, 0), nb - 1));
       }
     }
-    tile_slab_accumulate(s, k, nb, tile, dscale, psd, pw, true);
+    tile_slab_accumulate<Wide>(s, k, nb, tile, dscale, psd, pw, true);
     return;
   }
   if (mode == kRank) {
@@ -236,6 +237,7 @@ micro_stagea_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
   }
 }
 
+template <bool Wide>
 __global__ void __launch_bounds__(kTileThreads, 2)
 micro_tile_accum_kernel(const int* __restrict__ bkeys,
                         const int* __restrict__ offs,
@@ -256,10 +258,10 @@ micro_tile_accum_kernel(const int* __restrict__ bkeys,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int si = j * kTile + tile_col0() + c;
-      s.pay[si] = pack_rank(count_rank(s.list, nb, s.key[si]), s.pay[si]);
+      set_rank<Wide>(s, si, count_rank(s.list, nb, s.key[si]));
     }
   }
-  tile_slab_accumulate(s, rows, nb, tile, dscale, psd, pw, true);
+  tile_slab_accumulate<Wide>(s, rows, nb, tile, dscale, psd, pw, true);
 }
 
 // ---- M3: one-hot contraction bucketed by offset group, on wgmma ----
@@ -557,16 +559,16 @@ extern "C" int chad_micro_stagea_phases(const int* bkey, const int* okey,
                                         int mode, float qscale, float dscale,
                                         int* pkeys, float* psd, float* pw,
                                         void* stream) {
-  if (nb < 1 || nb > chad::kMaxNb || k < 1 || k > 32)
-    return (int)cudaErrorInvalidValue;
-  const int smem = chad::tile_smem_words(k, nb) * (int)sizeof(int);
-  cudaError_t err = chad::tile_kernel_smem(chad::micro_stagea_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n / chad::kTile == 0) return 0;
-  chad::micro_stagea_kernel<<<n / chad::kTile, chad::kTileThreads, smem,
-                              (cudaStream_t)stream>>>(
-      bkey, okey, sd, n, k, nb, mode, qscale, dscale, pkeys, psd, pw);
-  CHAD_RETURN_LAUNCH_ERROR();
+  if (!chad::tile_args_ok(k, nb)) return (int)cudaErrorInvalidValue;
+  const int tiles = n / chad::kTile;
+  cudaStream_t s = (cudaStream_t)stream;
+  return chad::tile_wide(nb)
+      ? chad::launch_tile_kernel(chad::micro_stagea_kernel<true>, tiles, k,
+                                nb, s, bkey, okey, sd, n, k, nb, mode, qscale,
+                                dscale, pkeys, psd, pw)
+      : chad::launch_tile_kernel(chad::micro_stagea_kernel<false>, tiles, k,
+                                nb, s, bkey, okey, sd, n, k, nb, mode, qscale,
+                                dscale, pkeys, psd, pw);
 }
 
 extern "C" int chad_micro_tile_accum(const int* bkeys, const int* offs,
@@ -574,17 +576,15 @@ extern "C" int chad_micro_tile_accum(const int* bkeys, const int* offs,
                                      int nb, float qscale, float dscale,
                                      int* pkeys, float* psd, float* pw,
                                      void* stream) {
-  if (nb < 1 || nb > chad::kMaxNb || rows < 1 || rows > 32)
-    return (int)cudaErrorInvalidValue;
-  const int smem = chad::tile_smem_words(rows, nb) * (int)sizeof(int);
-  cudaError_t err = chad::tile_kernel_smem(chad::micro_tile_accum_kernel,
-                                           smem);
-  if (err != cudaSuccess) return (int)err;
-  if (ntiles == 0) return 0;
-  chad::micro_tile_accum_kernel<<<ntiles, chad::kTileThreads, smem,
-                                  (cudaStream_t)stream>>>(
-      bkeys, offs, sds, rows, nb, qscale, dscale, pkeys, psd, pw);
-  CHAD_RETURN_LAUNCH_ERROR();
+  if (!chad::tile_args_ok(rows, nb)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return chad::tile_wide(nb)
+      ? chad::launch_tile_kernel(chad::micro_tile_accum_kernel<true>, ntiles,
+                                rows, nb, s, bkeys, offs, sds, rows, nb,
+                                qscale, dscale, pkeys, psd, pw)
+      : chad::launch_tile_kernel(chad::micro_tile_accum_kernel<false>, ntiles,
+                                rows, nb, s, bkeys, offs, sds, rows, nb,
+                                qscale, dscale, pkeys, psd, pw);
 }
 
 extern "C" int chad_micro_mxu8(const int* okey, const int* sdq,

@@ -10,7 +10,9 @@
 // and the atomics more than its bytes (it reads K x 1024 x 12 B per tile and
 // writes the live rows).  One CTA of 512 threads per tile; thread t loads
 // columns 2t and 2t + 1 of the tile's K rows.  Like K1, it leaves the dead
-// partial rows unwritten.
+// partial rows unwritten.  A list of more than 127 blocks (the sample_tile
+// insert's 128 over its (1, S) grid of block-sorted samples) takes the
+// stage's wide form, with 16-bit ranks beside the sample words.
 //
 // K3 replaces chad_tsdf_tpu/ops/tile_accum.py:merge_partials (Pallas body
 // _merge_kernel, :162-201): it adds slot-sorted partial rows into the
@@ -28,6 +30,7 @@
 
 namespace chad {
 
+template <bool Wide>
 __global__ void __launch_bounds__(kTileThreads, 2)
 tile_partials_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
                      const float* __restrict__ sd, int n, int k, int nb,
@@ -48,7 +51,8 @@ tile_partials_kernel(const int* __restrict__ bkey, const int* __restrict__ okey,
     }
   }
   __syncthreads();
-  const ColMask ovf = tile_accumulate(s, k, nb, tile, dscale, pkeys, psd, pw);
+  const ColMask ovf = tile_accumulate<Wide>(s, k, nb, tile, dscale, pkeys,
+                                            psd, pw);
   for (int r = 0; r < k; ++r) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -105,16 +109,16 @@ extern "C" int chad_tile_partials(const int* bkey, const int* okey,
                                   float qscale, float dscale, int* pkeys,
                                   float* psd, float* pw, int* ovfmask,
                                   void* stream) {
-  if (nb < 1 || nb > chad::kMaxNb || k < 1 || k > 32)
-    return (int)cudaErrorInvalidValue;
-  const int smem = chad::tile_smem_words(k, nb) * (int)sizeof(int);
-  cudaError_t err = chad::tile_kernel_smem(chad::tile_partials_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n / chad::kTile == 0) return 0;
-  chad::tile_partials_kernel<<<n / chad::kTile, chad::kTileThreads, smem,
-                               (cudaStream_t)stream>>>(
-      bkey, okey, sd, n, k, nb, qscale, dscale, pkeys, psd, pw, ovfmask);
-  CHAD_RETURN_LAUNCH_ERROR();
+  if (!chad::tile_args_ok(k, nb)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int tiles = n / chad::kTile;
+  return chad::tile_wide(nb)
+      ? chad::launch_tile_kernel(chad::tile_partials_kernel<true>, tiles, k,
+                                 nb, s, bkey, okey, sd, n, k, nb, qscale,
+                                 dscale, pkeys, psd, pw, ovfmask)
+      : chad::launch_tile_kernel(chad::tile_partials_kernel<false>, tiles, k,
+                                 nb, s, bkey, okey, sd, n, k, nb, qscale,
+                                 dscale, pkeys, psd, pw, ovfmask);
 }
 
 extern "C" int chad_merge_partials(float* pool_sd, float* pool_w,

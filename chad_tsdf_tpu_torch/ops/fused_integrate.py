@@ -64,7 +64,8 @@ def fused_tile_partials(px, py, pz, nx, ny, nz, sb, position, origin_voxel,
     On the card only the live rows of psd/pw (``tile_accum.live_rows(
     pkeys)``) are written: the dead ones are left as ``torch.empty`` made
     them, and K3 / ``plan_tiled_merge`` never read them.  The plain version
-    writes them as zeros.
+    writes them as zeros.  Any nb >= 1 on the CPU; on the card nb <=
+    ``tile_accum.max_nb(k)``.
     """
     n = px.shape[0]
     tile_accum.check_tile_shape(k, n, nb)
@@ -72,6 +73,7 @@ def fused_tile_partials(px, py, pz, nx, ny, nz, sb, position, origin_voxel,
         return fused_tile_partials_plain(
             px, py, pz, nx, ny, nz, sb, position, origin_voxel, nb=nb, k=k,
             res=res, trunc=trunc, extent=extent)
+    tile_accum.check_tile_smem(k, nb)
     dev = px.device
     for name, a in (("px", px), ("py", py), ("pz", pz), ("nx", nx),
                     ("ny", ny), ("nz", nz)):

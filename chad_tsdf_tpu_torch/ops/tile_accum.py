@@ -40,7 +40,11 @@ from .segops import boundary_flags, compact_flag_positions
 INT32_MAX = 2**31 - 1
 TILE = 1024          # points per tile (one CTA)
 SD_QUANT = 32767.0   # fixed-point grid of summed signed distances
-MAX_NB = 127         # list capacity the tile kernels take (7-bit ranks)
+# the longest block list whose ranks fit the sample word's 7 bits on the
+# card; a longer one takes 16-bit ranks beside the words (csrc/common.cuh)
+NARROW_MAX_NB = 127
+# dynamic shared memory a CTA of the tile kernels may opt into (sm_90)
+MAX_SMEM_BYTES = 227 * 1024
 
 
 def sd_scales(sdf_trunc: float) -> tuple[float, float]:
@@ -56,17 +60,48 @@ def quantize_sd(sd: torch.Tensor, sdf_trunc: float) -> torch.Tensor:
         torch.int32)
 
 
+def tile_smem_bytes(k: int, nb: int) -> int:
+    """Dynamic shared memory of one tile CTA on the card (``csrc/
+    common.cuh`` ``tile_smem_words``): the keys or the accumulate slab, the
+    sample words, a wide list's 16-bit ranks, the warp lists, the list and
+    scratch."""
+    keys, slab = k * TILE, 2 * 16 * 512
+    ranks = keys // 2 if nb > NARROW_MAX_NB else 0
+    return 4 * (max(keys, slab) + keys + ranks + 16 * nb + nb + 48)
+
+
+def max_nb(k: int) -> int:
+    """The longest block list the tile kernels take on the card at K
+    samples per point (0 where none fits): 1,548 at K = 10, 2,361 at
+    K = 1."""
+    words = MAX_SMEM_BYTES // 4 - 48
+    keys, slab = k * TILE, 2 * 16 * 512
+    narrow = min(NARROW_MAX_NB, (words - max(keys, slab) - keys) // 17)
+    wide = (words - max(keys, slab) - keys - keys // 2) // 17
+    return max(narrow, wide, 0)
+
+
 def check_tile_shape(k: int, n: int, nb: int | None = None) -> None:
-    """Shapes the tile kernels take (a K beyond shared memory makes the
-    launch fail, and :func:`kernels.launch` raises).  A sample's list rank
-    is packed in 7 bits on the card, so ``nb <= MAX_NB``."""
+    """Shapes the tile kernels and their plain versions take: N a multiple
+    of the tile, 1 <= K <= 32 and nb >= 1."""
     if n % TILE != 0:
         raise ValueError(f"tile kernels need N % {TILE} == 0, got {n}")
     if not 1 <= k <= 32:
         raise ValueError(f"tile kernels need 1 <= K <= 32 samples per "
                          f"point, got {k}")
-    if nb is not None and not 1 <= nb <= MAX_NB:
-        raise ValueError(f"tile kernels need 1 <= nb <= {MAX_NB}, got {nb}")
+    if nb is not None and nb < 1:
+        raise ValueError(f"tile kernels need nb >= 1, got {nb}")
+
+
+def check_tile_smem(k: int, nb: int) -> None:
+    """What the card adds to :func:`check_tile_shape`: a tile CTA's shared
+    memory within the 227 KiB it may opt into, so nb <= :func:`max_nb`
+    (K)."""
+    if tile_smem_bytes(k, nb) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"tile kernels at K = {k} take nb <= {max_nb(k)} on the card, "
+            f"got {nb}: a CTA would need {tile_smem_bytes(k, nb)} bytes of "
+            f"shared memory, over the {MAX_SMEM_BYTES} (227 KiB) limit")
 
 
 def live_rows(pkeys: torch.Tensor) -> torch.Tensor:
@@ -127,12 +162,14 @@ def tile_partials(bkey, okey, sd, nb: int, sdf_trunc: float):
     ovfmask i32[K, N]) with T = N // TILE: unused list slots have key
     INT32_MAX, and their rows are zero from the plain version and left
     unwritten by the kernel; ovfmask is 1 where a valid sample lies beyond
-    its tile's list (those samples are not accumulated here).
+    its tile's list (those samples are not accumulated here).  Any nb >= 1
+    on the CPU; on the card nb <= :func:`max_nb` (K) (:func:`check_tile_smem`).
     """
     k, n = bkey.shape
     check_tile_shape(k, n, nb)
     if bkey.device.type == "cpu":
         return tile_partials_plain(bkey, okey, sd, nb, sdf_trunc)
+    check_tile_smem(k, nb)
     kernels.check(bkey, "bkey", torch.int32)
     kernels.check(okey, "okey", torch.int32, (k, n), bkey.device)
     kernels.check(sd, "sd", torch.float32, (k, n), bkey.device)

@@ -3,6 +3,8 @@
     python3 -m chad_tsdf_tpu_torch.profile_insert            # on the H100
     python3 -m chad_tsdf_tpu_torch.profile_insert --device cpu --points 8192
     python3 -m chad_tsdf_tpu_torch.profile_insert --workload kitti
+    python3 -m chad_tsdf_tpu_torch.profile_insert --workload kitti \
+        --sparse-impl sample_tile
 
 Three measurements of the 2^20-point r = 5 m sphere insert (bench.py's
 cloud, seed 420) at the default ``MapConfig``:
@@ -21,12 +23,16 @@ cloud, seed 420) at the default ``MapConfig``:
 ``--workload kitti`` takes 1 and 2 on one KITTI-shaped scan
 (``io/kitti.py`` ``synthetic_lidar_scan``, seed 0) at the streaming
 configuration of ``scripts/kitti_stream.py``, dispatched to the sparse
-``seg`` backend as on the card (``--device cpu`` forces it).  On the card
-``TSDFMap.insert`` replays its CUDA graph, so 1 profiles the replays; the
-stages of 2 are those of the eager insert (a graph replays no Python, so
-nothing marks them there): keys + sort, normals (K2), DDA + payload, the
-2-key sort, the segmented sum, compaction, directory and scatter, marked
-through ``core.integrate.STAGE_HOOK``, and everything ``TSDFMap.insert``
+backend as on the card (``--sparse-impl``, ``seg`` unless said; ``--device
+cpu`` forces it).  On the card ``TSDFMap.insert`` replays its CUDA graph,
+so 1 profiles the replays; the stages of 2 are those of the eager insert
+(a graph replays no Python, so nothing marks them there): keys + sort,
+normals (K2), DDA + payload, then under ``seg`` the 2-key sort, the
+segmented sum, compaction, directory and scatter, under ``sample_tile``
+the sample sort, K4 and the K3 merge (its fallback, when a tile's list
+overflows, is settled at the next insert and lands in that insert's
+first stage), marked through ``core.integrate.STAGE_HOOK``, and everything
+``TSDFMap.insert``
 does before them on the host (padding, packing, the density estimate, the
 upload).  Beside them, on the host clock: the host's steps of the graph
 insert one by one (padding, the density estimate, packing) and the whole
@@ -327,15 +333,16 @@ def k2_dense_voxels(n: int, segment: int, device: torch.device):
     return out
 
 
-def kitti_main(device: torch.device, reps: int) -> int:
+def kitti_main(device: torch.device, reps: int,
+               sparse_impl: str = "seg") -> int:
     from .io.kitti import synthetic_lidar_scan
     from .scripts.kitti_stream import stream_config
     pts = synthetic_lidar_scan([0.0, 0.0, 0.0], seed=0)
     pos = np.float32([0.0, 0.0, 1.7])
-    cfg = stream_config()
+    cfg = stream_config(sparse_impl=sparse_impl)
     if device.type != "cuda":          # no density dispatch off the card
         cfg = dataclasses.replace(cfg, accumulate_impl=cfg.sparse_impl)
-    res = {"points": int(pts.shape[0]),
+    res = {"points": int(pts.shape[0]), "sparse_impl": sparse_impl,
            "profile": profile_inserts(pts, device, reps, cfg, pos)}
     print("profile:", json.dumps(res["profile"]), flush=True)
     res["stages_ms"] = seg_stage_times(pts, pos, cfg, device)
@@ -354,6 +361,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--workload", choices=("sphere", "kitti"),
                     default="sphere")
+    ap.add_argument("--sparse-impl", default="seg",
+                    choices=("seg", "sample_tile", "pallas", "fused"))
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda":
@@ -362,7 +371,7 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip(), flush=True)
     if args.workload == "kitti":
-        return kitti_main(device, args.reps)
+        return kitti_main(device, args.reps, args.sparse_impl)
     pts = sphere(args.points, 5.0, 420)
     res = {"profile": profile_inserts(pts, device, args.reps)}
     print("profile:", json.dumps(res["profile"]), flush=True)

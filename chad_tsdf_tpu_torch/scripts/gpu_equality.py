@@ -12,11 +12,13 @@ tools/tpu_kernel_equality.py's configurations):
 
 * ``dense_sphere_1m``: the 2^20-point r = 5 m sphere (seed 420) at
   ``MapConfig(max_points=2^20)``: ``fused`` (K2, K1, K3), ``tile`` (K2, K4,
-  K3), ``pallas`` (K2, K5) and ``seg`` (K2 and plain ops);
+  K3), ``pallas`` (K2, K5), ``seg`` (K2 and plain ops) and ``sample_tile``
+  (K2, K4 over tiles of the sorted samples at ``sparse_tile_nb`` 128, K3,
+  and K5 for what the lists leave);
 * ``sparse_lidar_131k``: ``io.kitti.synthetic_lidar_scan`` (seed 0, from
   (0, 0, 1.7)) at ``MapConfig(block_capacity=2^17, touched_capacity=2^15,
   max_points=2^17)``, where ``fused`` and ``tile`` fall back through K4 and
-  K5 on every tile;
+  K5 on every tile (``sample_tile``: on a few);
 * ``fallback_sphere_2048``: ``chip_smoke.py`` phase 4's 2048-point r = 5 m
   sphere (seed 7) at ``MapConfig(max_points=2048)``: one point per block,
   so the fused and tile inserts fall back.
@@ -26,9 +28,11 @@ weight differs (``voxels_with_weight_diff``, at most max(2, 1e-5 of the
 voxels), and ``max_weight_diff`` at most 4); ``max_mean_sd_diff_in_quanta``,
 the largest difference of per-voxel mean signed distance over the voxels
 of equal weight in 8-bit codec quanta (trunc / 127), below 1; ``pass``.
-The TPU tool's ``pallas_smem_switch`` and ``sample_tile`` rows test code
-the port does not have.  ``--points`` cuts the sphere to that many points
-and the scan to at most that many (every k-th point), for a dry run.
+The TPU tool ran ``sample_tile`` on the sparse scan only; here it runs on
+all three.  Its ``pallas_smem_switch`` row tests the SMEM table bucketing
+of the TPU kernel, which the port does not have.  ``--points`` cuts the
+sphere to that many points and the scan to at most that many (every k-th
+point), for a dry run.
 
 Writes ``chad_tsdf_tpu_torch/GPU_EQUALITY.json`` on a card (``--out``
 elsewhere; on the CPU only with ``--out``) with the card's name and power
@@ -55,7 +59,7 @@ from ..profile_insert import sphere
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "GPU_EQUALITY.json")
-BACKENDS = ("fused", "tile", "pallas", "seg")
+BACKENDS = ("fused", "tile", "pallas", "seg", "sample_tile")
 
 
 def run_impl(cfg: MapConfig, pts: np.ndarray, pos: np.ndarray, device,

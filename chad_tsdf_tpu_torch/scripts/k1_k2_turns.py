@@ -7,16 +7,18 @@ one card.
         --old-csrc _unpacked/old/chad_tsdf_tpu_torch/csrc
 
 The older sources are built with this checkout's nvcc flags into their own
-directory and called through their C entries: K1 ``chad_fused_tile_partials``
-(the same interface) and K2 ``chad_estimate_normals`` in the first design's
-interface (scratch f32[10 nd, N] segment totals and i32[nd, N] segment
-starts).  Inputs: the 2^20-point r = 5 m sphere (bench.py's cloud) and, for
-K2, the dense-voxel cloud (64 voxels x 16,384 points) at the default
-MapConfig.  Each kernel is timed old, new, new, old (``cuda_ms``: median
-of 20 calls, device time only); the two versions are held against each
-other first (K2 normals within a dot of 1e-3, K1 lists, counters and live
-partial rows equal).  Prints the card's name and power limit, then a JSON
-line.
+directory and called through their C entries, whose interfaces are this
+checkout's: K1 ``chad_fused_tile_partials``, K4 ``chad_tile_partials`` and
+K2 ``chad_estimate_normals`` (the per-tile scratch of
+``ops/normals_cuda.py``; sources older than K2's redesign took other
+scratch).  Inputs:
+the 2^20-point r = 5 m sphere (bench.py's cloud) and, for K2, the
+dense-voxel cloud (64 voxels x 16,384 points) at the default MapConfig; K4
+on the sample grids K1 walks.  Each kernel is timed old, new, new, old
+(``cuda_ms``: median of 20 calls, device time only); the two versions are
+held against each other first (K2 normals within a dot of 1e-3, K1 and K4
+lists, counters or masks and live partial rows equal).  Prints the card's
+name and power limit, then a JSON line.
 """
 
 from __future__ import annotations
@@ -46,10 +48,13 @@ def old_library(csrc: str) -> ctypes.CDLL:
         csrc, os.path.join(kernels.BUILD_DIR, "old"))
     lib = ctypes.CDLL(path)
     lib.chad_estimate_normals.argtypes = [_P] * 6 + [_I] * 2 + [_F] + \
-        [_P] * 4
+        [_P] * 5
     lib.chad_fused_tile_partials.argtypes = \
         [_P] * 9 + [_I] * 3 + [_F] * 3 + [_I] + [_F] * 2 + [_P] * 5
-    for fn in (lib.chad_estimate_normals, lib.chad_fused_tile_partials):
+    lib.chad_tile_partials.argtypes = [_P] * 3 + [_I] * 3 + [_F] * 2 + \
+        [_P] * 5
+    for fn in (lib.chad_estimate_normals, lib.chad_fused_tile_partials,
+               lib.chad_tile_partials):
         fn.restype = _I
     return lib
 
@@ -95,13 +100,17 @@ def main(argv=None) -> int:
     for name, pts_np in clouds.items():
         sb, so, px, py, pz = sorted_cloud(pts_np, cfg, dev)
         n = px.shape[0]
-        tot = torch.empty((10 * nd, n), dtype=torch.float32, device=dev)
-        starts = torch.empty((nd, n), dtype=torch.int32, device=dev)
+        tiles = -(-n // normals_cuda.TILE)
+        part = torch.empty((tiles, nd, 2, 10), dtype=torch.float32,
+                           device=dev)
+        tot = torch.empty_like(part)
+        meta = torch.empty((tiles, 2), dtype=torch.int32, device=dev)
         res_old = torch.empty((3, n), dtype=torch.float32, device=dev)
 
         def k2_old():
             _call(lib.chad_estimate_normals, p(px), p(py), p(pz), p(sb),
-                  p(so), p(pos), n, nd, mp, p(tot), p(starts), p(res_old))
+                  p(so), p(pos), n, nd, mp, p(part), p(tot), p(meta),
+                  p(res_old))
 
         def k2_new():
             return normals_cuda.estimate_normals(
@@ -151,6 +160,31 @@ def main(argv=None) -> int:
         out["K1_sphere"] = dict(turns(k1_old, k1_new, args.reps),
                                 live_rows=int(live.sum()), rows=t * nb)
         print(f"K1 sphere: {out['K1_sphere']}", flush=True)
+
+        grids = dda.local_sample_grids(
+            px, py, pz, nx, ny, nz, sb != INT32_MAX, pos,
+            origin_voxel(cfg, dev), cfg.sdf_res, cfg.sdf_trunc, k,
+            kw["extent"])
+        o_mask = torch.empty((k, n), dtype=torch.int32, device=dev)
+
+        def k4_old():
+            _call(lib.chad_tile_partials, p(grids[0]), p(grids[1]),
+                  p(grids[2]), n, k, nb, qscale, dscale, p(o_keys), p(o_sd),
+                  p(o_w), p(o_mask))
+
+        def k4_new():
+            return tile_accum.tile_partials(grids[0], grids[1], grids[2], nb,
+                                            cfg.sdf_trunc)
+
+        k4_old()
+        new = k4_new()
+        same = (torch.equal(new[0], o_keys) and torch.equal(new[3], o_mask)
+                and torch.equal(new[1][live], o_sd[live])
+                and torch.equal(new[2][live], o_w[live]))
+        if not same:
+            raise AssertionError("K4 old and new differ")
+        out["K4_sphere"] = turns(k4_old, k4_new, args.reps)
+        print(f"K4 sphere: {out['K4_sphere']}", flush=True)
     print(json.dumps(out))
     return 0
 

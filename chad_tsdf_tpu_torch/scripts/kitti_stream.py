@@ -2,6 +2,9 @@
 ``_kitti_shaped_stream`` on ``chad_tsdf_tpu_torch``.
 
     python3 -m chad_tsdf_tpu_torch.scripts.kitti_stream            # on a card
+    python3 -m chad_tsdf_tpu_torch.scripts.kitti_stream \\
+        --sparse-impl sample_tile
+    python3 -m chad_tsdf_tpu_torch.scripts.kitti_stream --sweep    # on a card
     python3 -m chad_tsdf_tpu_torch.scripts.kitti_stream --device cpu --scans 3
 
 Twelve synthetic ~120k-point LiDAR scans (``io/kitti.py``
@@ -18,9 +21,18 @@ object with bench.py's three keys: ``kitti_scans_per_sec``,
 On the card each scan is one replay of the map's CUDA graph
 (``core/graph.py``); the first scan of a map runs eagerly and captures it.
 ``--sparse-impl`` picks what sparse scans are dispatched to (``seg``,
-``pallas``, ``fused``, ...).  On the CPU no dispatch happens (as in the JAX
-package off the TPU), so ``--device cpu`` times the ``xla`` backend unless
-``--accumulate-impl`` says otherwise; its rates are not device numbers.
+``sample_tile``, ``pallas``, ``fused``, ...).  On the CPU no dispatch
+happens (as in the JAX package off the TPU), so ``--device cpu`` times the
+``xla`` backend unless ``--accumulate-impl`` says otherwise; its rates are
+not device numbers.
+
+``--sweep`` measures the timed region (no warm pass) at every
+``sparse_impl`` of :data:`SPARSE_IMPLS` and every density threshold
+``sparse_points_per_block`` of :data:`THRESHOLDS`, in turns: ``--rounds``
+rounds, each running every setting once in the same order, after a first
+round that warms each.  It prints one JSON line per setting (median
+scans/s, every round's, and which backend each scan was dispatched to),
+then one JSON object of the medians.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ from ..io.kitti import synthetic_lidar_scan
 
 N_SCANS = 12
 SPACING_M = 1.5
+SPARSE_IMPLS = ("seg", "sample_tile", "pallas", "fused")
+THRESHOLDS = (16.0, 32.0, 64.0, 128.0, 256.0)
 
 
 def stream_config(**overrides) -> MapConfig:
@@ -130,6 +144,36 @@ def timed_stream(scans, config: MapConfig, device="cuda", graphs=True):
     return m, dt, total_pts, metrics, reads
 
 
+def sweep(scans, device="cuda", rounds: int = 3, impls=SPARSE_IMPLS,
+          thresholds=THRESHOLDS, log=print) -> dict:
+    """The timed region at every (``sparse_impl``, ``sparse_points_per_
+    block``) setting, in turns (module docstring).  Returns {setting:
+    {"scans_per_s": median, "rounds": [...], "dispatched": {backend:
+    scans}}} with settings named ``"<impl>@<threshold>"``."""
+    settings = {f"{impl}@{thr:g}": stream_config(
+        sparse_impl=impl, sparse_points_per_block=thr)
+        for thr in thresholds for impl in impls}
+    out = {name: {"rounds": []} for name in settings}
+    for rnd in range(rounds + 1):
+        for name, cfg in settings.items():
+            m, dt, _, _, _ = timed_stream(scans, cfg, device)
+            if rnd == 0:
+                disp: dict = {}
+                for pts, _ in scans:
+                    impl = m._dispatch_config(pts).accumulate_impl
+                    disp[impl] = disp.get(impl, 0) + 1
+                out[name]["dispatched"] = disp
+            else:
+                out[name]["rounds"].append(round((len(scans) - 1) / dt, 2))
+            del m
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+    for name, r in out.items():
+        r["scans_per_s"] = float(np.median(r["rounds"]))
+        log(json.dumps({"setting": name, **r}))
+    return out
+
+
 def kitti_shaped_stream(n_scans: int = N_SCANS, device="cuda",
                         config: MapConfig | None = None) -> dict:
     """bench.py's ``_kitti_shaped_stream`` on the port; returns its three
@@ -161,8 +205,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--scans", type=int, default=N_SCANS)
-    ap.add_argument("--sparse-impl", default=None)
-    ap.add_argument("--accumulate-impl", default=None)
+    impls = ("seg", "sample_tile", "pallas", "fused", "tile", "xla")
+    ap.add_argument("--sparse-impl", default=None, choices=impls)
+    ap.add_argument("--accumulate-impl", default=None,
+                    choices=("auto",) + impls)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args(argv)
     overrides = {k: v for k, v in (("sparse_impl", args.sparse_impl),
                                    ("accumulate_impl", args.accumulate_impl))
@@ -172,6 +220,10 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip(), flush=True)
+    if args.sweep:
+        res = sweep(make_scans(args.scans), args.device, args.rounds)
+        print(json.dumps({k: v["scans_per_s"] for k, v in res.items()}))
+        return 0
     print(json.dumps(kitti_shaped_stream(
         args.scans, args.device, stream_config(**overrides))))
     return 0

@@ -126,6 +126,7 @@ def stagea(bkey, okey, sd, nb: int, mode: str):
         raise ValueError(f"the presorted list takes K <= {PRESORT_MAX_K}")
     if bkey.device.type == "cpu":
         return stagea_plain(bkey, okey, sd, nb, mode)
+    tile_accum.check_tile_smem(k, nb)
     kernels.check(bkey, "bkey", torch.int32)
     kernels.check(okey, "okey", torch.int32, (k, n), bkey.device)
     kernels.check(sd, "sd", torch.float32, (k, n), bkey.device)

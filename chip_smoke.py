@@ -16,13 +16,20 @@ runs, failing with a non-zero exit on the first error:
    live partial rows: the kernels leave dead rows unwritten); K2 also on a
    dense-voxel cloud (64 voxels x 16,384 points) and a few small clouds with
    padding, ragged sizes and segments across tiles, and two K2 launches
-   must give bit-equal normals; K5 segment accumulate on the ``pallas``
+   must give bit-equal normals; K1 and K4 with block lists of 128 and 256
+   (the wide form: 16-bit ranks beside the sample words) on one sorted
+   KITTI-shaped scan at K = 10, against their plain versions and each
+   other; the ``sample_tile`` path's K4 at (K = 1, nb = 128) on that scan's
+   block-sorted sample stream and K3 merging its 163,840 partial-row slots,
+   each against its plain version, timed, with its bound (K3 also against
+   ``index_add_``); K5 segment accumulate on the ``pallas``
    backend's tables of the 1M-point sphere, the dense-voxel cloud and a
    single-voxel cloud (2^20 points in one voxel), and on a synthetic table
    with segments on chunk boundaries: its device chunk list against the
    plain one, both pool planes bit for bit against the plain version, and
    two launches bit-equal; the
-   microbenchmark kernels M1 (every mode), M2 and M3 (both precisions) at a
+   microbenchmark kernels M1 (every mode, nb 48 and 128), M2 and M3 (both
+   precisions) at a
    reduced size, M3 at every nb it takes on the script's inputs and on four
    edge cases (one offset group, ``use`` all zero, sdq = +-127, lrow outside
    [0, nb)), its wgmmas per tile equal to the padded group lists.  K3 and
@@ -63,9 +70,12 @@ runs, failing with a non-zero exit on the first error:
    first scan) that launches K2 and no other kernel, overflow nothing and
    leave 2 deferred rotations behind; K2 against its plain version on one
    sorted scan; the same stream under ``sparse_impl`` = ``seg``,
-   ``pallas`` and ``fused`` through the graphs and under ``seg`` eagerly,
-   in turns (median scans/s of each), the final maps equal to each other
-   (the two ``seg`` ones bit for bit), rotated-out submaps included;
+   ``sample_tile``, ``pallas`` and ``fused`` through the graphs and under
+   ``seg`` eagerly, in turns (median scans/s of each), the final maps'
+   directories and weights equal to each other (the two ``seg`` ones bit
+   for bit), rotated-out submaps included, the ``sample_tile`` graph
+   launching K2, K4, K3 and the IF node's kernel a replay and K5 in the IF
+   node, whose body runs (``tile_overflow`` > 0);
    ``seg`` against the scatter backend and packed against f32 ingest on one
    scan; two ``seg`` streams bit-equal in pools and DAG counters, and a
    stream drained after every insert equal to the deferred one;
@@ -122,9 +132,11 @@ runs, failing with a non-zero exit on the first error:
    at reps 3 bit-equal to 3 eager ``insert_step``s (pools, directory, slot
    order and the five counters) on the 2^20-point sphere (K1, K2, K3 in
    the graph, K4 and K5 in its IF node, not run) and on phase 4's
-   2048-point sparse sphere under ``fused`` (the IF node runs K4 and K5);
-   the launches per replay as captured, and as the profiler names the
-   kernels of 4 replays; no synchronising call from ``core/integrate.py``
+   2048-point sparse sphere under ``fused`` (the IF node runs K4 and K5)
+   and on one KITTI-shaped scan under ``sample_tile`` (K2, K4, K3 in the
+   graph, K5 in its IF node, which runs); the launches per replay as
+   captured, and as the profiler names the kernels of 4 replays; no
+   synchronising call from ``core/integrate.py``
    while replaying; ms per insert through the graph, the eager loop and a
    synced single, and the device's busy share under replay; the memory
    reserved before, during and after; ``utils.timing.profile_insert``'s
@@ -133,11 +145,14 @@ runs, failing with a non-zero exit on the first error:
 15. ``TSDFMap.insert`` through its CUDA graphs (``core/graph.py``), every
    insert bit-equal to the eager insert of a twin map (states active and
    rotated-out, every metric) and reading nothing on the host: the dense
-   sphere under ``fused``, ``tile`` and ``pallas`` (clouds of 2^20,
+   sphere under ``fused``, ``tile``, ``pallas`` and ``sample_tile``
+   (clouds of 2^20,
    2^20 - 12,345 and 900,000 points in one bucket), the 2048-point sparse
-   sphere under ``fused`` (three clouds, the IF node runs K4 and K5), and
-   phase 8's stream with its two rotations, carving off and on (then the
-   drain's ``stats()`` equal); the launches per replay outside and inside
+   sphere under ``fused`` (three clouds, the IF node runs K4 and K5) and
+   ``sample_tile`` (the IF node runs K5), and phase 8's stream with its two
+   rotations, carving off and on, and under ``sparse_impl="sample_tile"``
+   (the IF node runs K5; then the drain's ``stats()`` equal); the launches
+   per replay outside and inside
    the IF node, and for the sphere clouds the kernels the profiler sees in
    one more replay; the graphs' bytes and the memory reserved before,
    during and after; the cost of the rotation design (the stub's copy of
@@ -159,7 +174,8 @@ They are reset again just before phase 4's sparse insert, where K4 and K5
 must launch, just before phase 7's timing runs, where M1-M3 must launch,
 and just before phase 8's stream, where K2 must launch twice (the eager
 scan and the capture), the graph one K2 a replay, and K1, K3, K4 and K5
-not at all.
+not at all; and before each of phase 8's ``sample_tile`` streams, where
+K2, K4, K3 and ``set_conditional`` must launch and K1 not at all.
 Phases 10-12 reset them just before their own inserts and read them right
 after (K2 on the carved stream and the checkpoint's 2 scans, K1-K3 on the
 loop closure's sphere passes); phase 13 just before one N = 4 dense insert
@@ -170,8 +186,10 @@ for K4-K5, phase 7 for M1-M3 (and, as ``launches_stream``,
 ``launches_carve``, ``launches_checkpoint`` and ``launches_loop_closure``,
 in the inserts of phases 8, 10, 11 and 12, and as
 ``launches_sharded_dense`` and ``launches_sharded_stream`` in phase 13's,
-and as ``launches_per_replay_dense`` and ``launches_per_replay_fallback``
-each replay of phase 14's two graphs, and as ``launches_per_insert_map``
+and as ``launches_per_replay_dense``, ``launches_per_replay_fallback`` and
+``launches_per_replay_sample_tile`` each replay of phase 14's three graphs,
+as ``launches_sample_tile_stream`` phase 8's ``sample_tile`` stream, and as
+``launches_per_insert_map``
 each insert through phase 15's map graphs, by cloud: what the graph
 launches outside its IF node, plus its body where the cloud falls back),
 with its time, its plain
@@ -181,7 +199,8 @@ larger of the bytes the function must move (each input read once, each
 output written once)
 over 3.35 TB/s and its operations over the peak rate of their type
 (``bound_by`` says which); M3's entry also has its int8 time,
-``ms_int8`` (``ms`` is bf16's).  The last line is
+``ms_int8`` (``ms`` is bf16's), and K4's and K3's entries their numbers
+at the ``sample_tile`` path's shapes under ``sample_tile``.  The last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX and nothing of
 the JAX package ``chad_tsdf_tpu``, and checks that neither was loaded.
 """
@@ -467,44 +486,190 @@ def check_kernels(cfg, results):
         state, k1[0], k1[1], k1[2], torch.zeros((), dtype=torch.int32,
                                                 device=dev),
         0, 0, 0, cfg)
-    directory, plan, _, _ = integrate.plan_tiled_merge(state, k1[0], cfg)
+    results["merge_partials"], merged_w = check_k3(state, k1, cfg, "sphere")
+    require(torch.equal(merged_w, 2 * state.pool_w), "K3 lost weight")
+    log(f"K3 merge_partials: {results['merge_partials']}")
+    del state, k1, merged_w
+
+
+def check_k3(state, partials, cfg, what):
+    """K3 merging the partial rows ``partials`` (a tile kernel's pkeys, psd,
+    pw) into copies of ``state``'s pools against its plain version: weights
+    equal, sd within SD_TOL per unit weight; timed, with its bound and the
+    yardstick, one ``index_add_`` of all P rows ([sd | w] side by side) at
+    their slots, dead rows at the reserved slot, as a scatter would.
+    Returns (the result, the weight plane after one merge)."""
+    from chad_tsdf_tpu_torch.core import integrate
+    from chad_tsdf_tpu_torch.ops import tile_accum
+    pkeys, psd, pw = partials[:3]
+    _, plan, _, _ = integrate.plan_tiled_merge(state, pkeys, cfg)
     pools_k = (state.pool_sd.clone(), state.pool_w.clone())
     pools_p = (state.pool_sd.clone(), state.pool_w.clone())
-    tile_accum.merge_partials(*pools_k, *plan, k1[1], k1[2])
-    tile_accum.merge_partials_plain(*pools_p, *plan, k1[1], k1[2])
-    require(torch.equal(pools_k[1], pools_p[1]), "K3 weights differ")
+    tile_accum.merge_partials(*pools_k, *plan, psd, pw)
+    tile_accum.merge_partials_plain(*pools_p, *plan, psd, pw)
+    require(torch.equal(pools_k[1], pools_p[1]), f"K3 weights differ ({what})")
     err3 = sd_err_per_weight(pools_k[0], pools_p[0], pools_p[1])
-    require(err3 < SD_TOL, f"K3 sd error {err3}")
-    require(torch.equal(pools_k[1], 2 * state.pool_w), "K3 lost weight")
-    # the yardstick: one index_add_ of all P rows ([sd | w] side by side)
-    # at their slots, dead rows at the reserved slot, as a scatter would
+    require(err3 < SD_TOL, f"K3 sd error {err3} ({what})")
+    merged_w = pools_k[1].clone()      # the timing below merges again
     n_groups, gstart, glen, grow, prow, src = plan
     ng = int(n_groups[0])
     lens = glen[:ng].to(torch.int64)
-    slot_sorted = torch.full((k1[0].shape[0],), cfg.block_capacity - 1,
-                             dtype=torch.int64, device=dev)
-    n_live3 = int(lens.sum())
-    slot_sorted[:n_live3] = (torch.repeat_interleave(grow[:ng].to(
-        torch.int64), lens) * 8 + prow[:n_live3].to(torch.int64))
+    slot_sorted = torch.full((pkeys.shape[0],), cfg.block_capacity - 1,
+                             dtype=torch.int64, device=pkeys.device)
+    n_live = int(lens.sum())
+    slot_sorted[:n_live] = (torch.repeat_interleave(grow[:ng].to(
+        torch.int64), lens) * 8 + prow[:n_live].to(torch.int64))
     row_slot = torch.empty_like(slot_sorted)
     row_slot[src.to(torch.int64)] = slot_sorted
     both_pool = torch.cat(pools_p, dim=1)
-    both_rows = torch.cat((k1[1], k1[2]), dim=1)
-    touched = int(torch.unique(slot_sorted[:n_live3]).shape[0])
-    results["merge_partials"] = {
-        "max_abs_err": float((pools_k[0] - pools_p[0]).abs().max()),
-        "ms": cuda_ms(lambda: tile_accum.merge_partials(
-            *pools_k, *plan, k1[1], k1[2])),
-        "plain_ms": cuda_ms(lambda: tile_accum.merge_partials_plain(
-            *pools_p, *plan, k1[1], k1[2]), reps=3),
-        "library_ms": cuda_ms(lambda: both_pool.index_add_(0, row_slot,
-                                                           both_rows)),
-        "live_rows": n_live3, "touched_rows": touched}
-    results["merge_partials"]["bound_ms"], \
-        results["merge_partials"]["bound_by"] = bound(
-            n_live3 * (4096 + 8) + touched * 8192 + ng * 12)
-    log(f"K3 merge_partials: {ng} groups, {results['merge_partials']}")
-    del state, pools_k, pools_p, k1, directory, plan, both_pool, both_rows
+    both_rows = torch.cat((psd, pw), dim=1)
+    touched = int(torch.unique(slot_sorted[:n_live]).shape[0])
+    r = {"max_abs_err": float((pools_k[0] - pools_p[0]).abs().max()),
+         "ms": cuda_ms(lambda: tile_accum.merge_partials(
+             *pools_k, *plan, psd, pw)),
+         "plain_ms": cuda_ms(lambda: tile_accum.merge_partials_plain(
+             *pools_p, *plan, psd, pw), reps=3),
+         "library_ms": cuda_ms(lambda: both_pool.index_add_(0, row_slot,
+                                                            both_rows)),
+         "slots": int(pkeys.shape[0]), "live_rows": n_live,
+         "touched_rows": touched, "groups": ng}
+    # each live partial row read once (and its plan entry), each touched
+    # pool row read and written once
+    r["bound_ms"], r["bound_by"] = bound(
+        n_live * (4096 + 8) + touched * 8192 + ng * 12)
+    return r, merged_w
+
+
+def hold_k4(k4, targs, what):
+    """K4's outputs ``k4`` against its plain version on ``targs``: block
+    lists and overflow masks equal, weights equal on the live rows, sd
+    within SD_TOL per unit weight.  Returns (the live-row mask, max |sd
+    difference| on the live rows)."""
+    from chad_tsdf_tpu_torch.ops import tile_accum
+    p4 = tile_accum.tile_partials_plain(*targs)
+    require(torch.equal(k4[0], p4[0]), f"K4 block lists differ ({what})")
+    require(torch.equal(k4[3], p4[3]), f"K4 ovfmask differs ({what})")
+    live = tile_accum.live_rows(p4[0])
+    require(torch.equal(k4[2][live], p4[2][live]),
+            f"K4 weights differ ({what})")
+    err = sd_err_per_weight(k4[1][live], p4[1][live], p4[2][live])
+    require(err < SD_TOL, f"K4 sd error {err} ({what})")
+    return live, float((k4[1][live] - p4[1][live]).abs().max())
+
+
+def kitti_scan_inputs(cfg, dev):
+    """Scan 0 of phase 8's stream padded to its 131,072-point bucket (with
+    points of the scan marked as padding), Morton-sorted, with K2's
+    normals: (scan points, scan position, bucket, sb, so, px, py, pz, nx,
+    ny, nz)."""
+    from chad_tsdf_tpu_torch.ops import normals_cuda
+    from chad_tsdf_tpu_torch.profile_insert import sorted_cloud
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+    (pts, pos), = ks.make_scans(1)
+    bucket = next(b for b in ks.stream_config().buckets if b >= len(pts))
+    sb, so, px, py, pz = sorted_cloud(np.resize(pts, (bucket, 3)), cfg, dev,
+                                      len(pts))
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    nk = normals_cuda.estimate_normals(px, py, pz, sb, so, zero,
+                                       cfg.normal_min_points,
+                                       cfg.normal_max_depth)
+    return (pts, pos, bucket, sb, so, px, py, pz,
+            *(n.contiguous() for n in nk))
+
+
+def check_sample_tile(cfg, results):
+    """Phase 2, the sample_tile path's kernels and the wide block lists:
+    K4 and K1 at (K = 10, nb = 128) and (K = 10, nb = 256) on one sorted
+    KITTI-shaped scan (whose tiles hold more than 128 blocks) against their
+    plain versions and each other; K4 at (K = 1, nb = 128) on that scan's
+    block-sorted sample stream, as ``insert_step_sample_tiled`` runs it,
+    and K3 merging its partial rows (T x nb = 163,840 slots), each against
+    its plain version, timed, with its bound; K3 also against
+    ``index_add_``."""
+    from chad_tsdf_tpu_torch.core import integrate
+    from chad_tsdf_tpu_torch.core.state import (create_state,
+                                                origin_blocks_for_position)
+    from chad_tsdf_tpu_torch.ops import dda, fused_integrate, tile_accum
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+
+    dev = torch.device("cuda")
+    (pts, pos_np, bucket, sb, so, px, py, pz, nx, ny, nz) = \
+        kitti_scan_inputs(cfg, dev)
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    origin_voxel = torch.from_numpy(origin_blocks_for_position(
+        np.zeros(3), cfg)).to(dev) * 8
+    grids = dda.local_sample_grids(px, py, pz, nx, ny, nz, sb != 2**31 - 1,
+                                   zero, origin_voxel, cfg.sdf_res,
+                                   cfg.sdf_trunc, cfg.dda_steps,
+                                   cfg.blocks_per_axis * 8)
+    wide = {}
+    for nb in (128, 256):
+        kw = dict(nb=nb, k=cfg.dda_steps, res=cfg.sdf_res,
+                  trunc=cfg.sdf_trunc, extent=cfg.blocks_per_axis * 8)
+        fargs = (px, py, pz, nx, ny, nz, sb, zero, origin_voxel)
+        k1 = fused_integrate.fused_tile_partials(*fargs, **kw)
+        live1, err1 = hold_k1(k1, fargs, kw, f"KITTI scan, nb {nb}")
+        targs = (grids[0], grids[1], grids[2], nb, cfg.sdf_trunc)
+        k4 = tile_accum.tile_partials(*targs)
+        _, err4 = hold_k4(k4, targs, f"KITTI scan, K = 10, nb {nb}")
+        require(torch.equal(k4[0], k1[0]) and
+                int(k4[3].sum()) == int(k1[3][:, 1].sum()),
+                f"K4 and K1 coverage differ at nb {nb}")
+        for i in (1, 2):
+            require(torch.equal(k4[i][live1], k1[i][live1]),
+                    f"K4 and K1 output {i} differ at nb {nb}")
+        wide[f"nb{nb}"] = {
+            "live_rows": int(live1.sum()),
+            "not_covered": int(k1[3][:, 1].sum()),
+            "k1_max_abs_err": err1, "k4_max_abs_err": err4,
+            "k1_ms": cuda_ms(lambda: fused_integrate.fused_tile_partials(
+                *fargs, **kw)),
+            "k4_ms": cuda_ms(lambda: tile_accum.tile_partials(*targs))}
+        del k1, k4
+    results["fused_tile_partials"]["kitti_wide"] = wide
+    log(f"K1 and K4 at K = {cfg.dda_steps}, nb 128 / 256 on one KITTI-shaped "
+        f"scan ({len(pts)} of {bucket} points): equal to their plain "
+        f"versions and to each other; {wide}")
+    del grids
+
+    # ---- K4 at (1, 128) on the block-sorted sample stream ----
+    scfg = ks.stream_config(accumulate_impl="sample_tile")
+    pos = torch.from_numpy(pos_np).to(dev)
+    origin = torch.from_numpy(origin_blocks_for_position(pos_np, scfg)).to(
+        dev)
+    padded = torch.from_numpy(np.resize(pts, (bucket, 3))).to(dev)
+    batch = integrate.sort_samples(integrate.compute_samples(
+        padded, len(pts), pos, origin, scfg))
+    s = batch.bkey.shape[0]
+    okey, sd = integrate.unpack_payload(batch.payload, scfg.sdf_trunc)
+    targs = (batch.bkey.reshape(1, s), okey.reshape(1, s).contiguous(),
+             sd.reshape(1, s).contiguous(), scfg.sparse_tile_nb,
+             scfg.sdf_trunc)
+    k4 = tile_accum.tile_partials(*targs)
+    live4, err4 = hold_k4(k4, targs, "sample stream, K = 1, nb 128")
+    n_live = int(live4.sum())
+    tiles = s // 1024
+    n_valid = int((batch.bkey != 2**31 - 1).sum())
+    r4 = {"samples": s, "valid_samples": n_valid, "tiles": tiles,
+          "nb": scfg.sparse_tile_nb, "live_rows": n_live,
+          "not_covered": int(k4[3].sum()), "max_abs_err": err4,
+          "ms": cuda_ms(lambda: tile_accum.tile_partials(*targs)),
+          "plain_ms": cuda_ms(lambda: tile_accum.tile_partials_plain(
+              *targs), reps=3)}
+    # each sample read once (key, offset, sd: 12 B) and its mask written
+    # (4 B); the list and the live rows written
+    r4["bound_ms"], r4["bound_by"] = bound(
+        16 * s + tiles * scfg.sparse_tile_nb * 4 + n_live * 4096)
+    results["tile_partials"]["sample_tile"] = r4
+    log(f"K4 tile_partials on the sample stream (K = 1, nb "
+        f"{scfg.sparse_tile_nb}): {r4}")
+
+    # ---- K3 at this path's shapes: T x nb slots into a fresh pool ----
+    state = create_state(scfg, origin_blocks_for_position(pos_np, scfg), dev)
+    r3, _ = check_k3(state, k4, scfg, "sample stream")
+    results["merge_partials"]["sample_tile"] = r3
+    log(f"K3 merge_partials of the sample stream's partial rows: {r3}")
+    del state, k4, batch
 
 
 def check_k5(cfg, results):
@@ -631,16 +796,18 @@ def check_micro():
     error."""
     from chad_tsdf_tpu_torch.scripts import (micro_mxu8, micro_stagea_phases,
                                              micro_tile_accum)
+    m1_in = micro_inputs(micro_stagea_phases, MICRO_CHECK_N)
     errs = {
-        "micro_stagea_phases": micro_stagea_phases.check(
-            *micro_inputs(micro_stagea_phases, MICRO_CHECK_N),
-            48)["max_abs_err"],
+        # nb 128: the shared stage's wide lists (16-bit ranks)
+        "micro_stagea_phases": max(
+            micro_stagea_phases.check(*m1_in, nb)["max_abs_err"]
+            for nb in (48, 128)),
         "micro_tile_accum": micro_tile_accum.check(
             *micro_inputs(micro_tile_accum, MICRO_CHECK_TILES))["max_abs_err"],
         "micro_mxu8": check_m3(micro_mxu8)}
-    log(f"M1-M3 at a reduced size ({MICRO_CHECK_N} points, "
-        f"{MICRO_CHECK_TILES} M2 tiles): every mode and precision equals its "
-        f"plain version; max sd err {errs}")
+    log(f"M1-M3 at a reduced size ({MICRO_CHECK_N} points, nb 48 and 128 "
+        f"for M1, {MICRO_CHECK_TILES} M2 tiles): every mode and precision "
+        f"equals its plain version; max sd err {errs}")
     return errs
 
 
@@ -809,8 +976,9 @@ def bit_equal_maps(a, b, what):
 
 def run_stream(cfg):
     """Phase 8: the KITTI-shaped stream and its checks; returns the launch
-    counts of the ``seg`` stream, K2's result on one scan, and one ``seg``
-    stream map whose rotations are still pending (for phase 9)."""
+    counts of the ``seg`` stream and of the ``sample_tile`` stream, K2's
+    result on one scan, and one ``seg`` stream map whose rotations are
+    still pending (for phase 9)."""
     from chad_tsdf_tpu_torch import MapConfig, TSDFMap, kernels
     from chad_tsdf_tpu_torch.ops import accumulate
     from chad_tsdf_tpu_torch.profile_insert import sorted_cloud
@@ -839,12 +1007,14 @@ def run_stream(cfg):
     require(out["kitti_tile_overflow"] == 0,
             f"kitti_tile_overflow {out['kitti_tile_overflow']}")
 
-    # the three sparse backends in turns, and seg's eager insert; the first
+    # the four sparse backends in turns, and seg's eager insert; the first
     # round warms each
     turns = {"seg": ("seg", True), "seg eager": ("seg", False),
+             "sample_tile": ("sample_tile", True),
              "pallas": ("pallas", True), "fused": ("fused", True)}
     rates = {name: [] for name in turns}
     maps, stream_launches, undrained = {}, None, None
+    sample_tile_launches = None
     for rnd in range(4):
         for name, (impl, graphs) in turns.items():
             c = ks.stream_config(sparse_impl=impl)
@@ -882,6 +1052,22 @@ def run_stream(cfg):
                     require(launches[k] == 0, f"{k} launched on the seg "
                                               f"stream")
                 stream_launches = launches
+            if name == "sample_tile":
+                # K2, K4, K3 and the IF node's kernel a replay; K5 in the
+                # IF node's body, which runs where a tile's list overflowed
+                (sg,) = m._graphs.values()
+                outer = ("estimate_normals", "tile_partials",
+                         "merge_partials", "set_conditional")
+                require(sg.replays == len(scans) - 1 and
+                        sg.launches == dict.fromkeys(outer, 1) and
+                        sg.body_launches == {"accumulate_segments": 1},
+                        f"the sample_tile graph: {sg.replays} replays, "
+                        f"launches {sg.launches}, in its IF node "
+                        f"{sg.body_launches}")
+                require(all(launches[k] > 0 for k in outer) and
+                        launches["fused_tile_partials"] == 0,
+                        f"sample_tile stream launches {launches}")
+                sample_tile_launches = launches
             if name == "seg eager":
                 require(launches["estimate_normals"] == len(scans),
                         f"K2 launched {launches['estimate_normals']} times "
@@ -903,13 +1089,15 @@ def run_stream(cfg):
                     f"{reads}); launches in 12 inserts {launches}")
             del m
         torch.cuda.empty_cache()
-    for impl in ("pallas", "fused"):
+    for impl in ("sample_tile", "pallas", "fused"):
         err = same_map(maps[impl], maps["seg"], f"stream {impl} vs seg")
         log(f"phase 8 {impl} vs seg: directories and weights equal on the "
             f"active and {rotations} rotated-out states, sd err/weight "
-            f"{err:.3e}")
-    require(int(maps["fused"].state.tile_overflow) > 0,
-            "the fused stream did not fall back")
+            f"{err:.3e}; tile_overflow "
+            f"{int(maps[impl].state.tile_overflow)}")
+    for impl in ("sample_tile", "fused"):
+        require(int(maps[impl].state.tile_overflow) > 0,
+                f"the {impl} stream did not fall back")
 
     # the seg map's drain: overflow counters, submaps, DAG counters; then a
     # stream drained after every insert must give the same DAG
@@ -967,7 +1155,7 @@ def run_stream(cfg):
         f"{abs_err:.3e}; packed vs f32 ingest share {share:.4f} of "
         f"{c1.shape[0]} / {c2.shape[0]} voxels, sd diff median "
         f"{np.median(diff):.2e} mean {np.mean(diff):.2e}")
-    return stream_launches, rk2, undrained
+    return stream_launches, sample_tile_launches, rk2, undrained
 
 
 def timed_save(m, impl, path):
@@ -1940,8 +2128,10 @@ def profiled(fn):
 
 def run_graph(tmp):
     """Phase 14: ``insert_steps_scan`` replaying a captured CUDA graph,
-    held bit for bit against eager inserts, on the dense sphere and on the
-    2048-point sparse sphere (whose graph's IF node runs K4 and K5); its
+    held bit for bit against eager inserts, on the dense sphere, on the
+    2048-point sparse sphere (whose graph's IF node runs K4 and K5) and on
+    one KITTI-shaped scan under ``sample_tile`` (K4 and K3 in the graph, K5
+    in its IF node, which runs); its
     timing and busy share; the memory reserved before, during and after;
     ``utils.timing`` and ``demo_sphere`` on the card.  Returns (the
     launches per replay of each graph, the memory reserved by moment)."""
@@ -1951,20 +2141,36 @@ def run_graph(tmp):
                                                 origin_blocks_for_position)
     from chad_tsdf_tpu_torch.mesh import read_ply
     from chad_tsdf_tpu_torch.ops import accumulate
+    from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
     from chad_tsdf_tpu_torch.utils import timing
     t_phase = time.perf_counter()
     mem = {"before": reserved_mb()}
     dev = torch.device("cuda", torch.cuda.current_device())
-    pos = torch.zeros(3, dtype=torch.float32, device=dev)
     per_replay = {}
     reps = 3
-    for name, cfg, pts_np in (
-            ("dense", MapConfig(), sphere(N_DENSE, 5.0, 420)),
-            ("fallback", MapConfig(max_points=2048, accumulate_impl="fused"),
-             sphere(2048, 5.0, 7))):
+    fused_outer = ("fused_tile_partials", "estimate_normals",
+                   "merge_partials", "set_conditional")
+    tile_body = ("tile_partials", "accumulate_segments")
+    (kitti, kitti_pos), = ks.make_scans(1)
+    kitti_cfg = ks.stream_config(accumulate_impl="sample_tile",
+                                 packed_ingest=False, max_points=1 << 17)
+    kitti_pts = np.zeros((kitti_cfg.max_points, 3), np.float32)
+    kitti_pts[:len(kitti)] = kitti
+    cases = (
+        # name, config, padded cloud, valid points, position, kernels a
+        # replay launches outside the IF node and in its body, fallback
+        ("dense", MapConfig(), sphere(N_DENSE, 5.0, 420), N_DENSE,
+         np.zeros(3, np.float32), fused_outer, tile_body, False),
+        ("fallback", MapConfig(max_points=2048, accumulate_impl="fused"),
+         sphere(2048, 5.0, 7), 2048, np.zeros(3, np.float32), fused_outer,
+         tile_body, True),
+        ("sample_tile", kitti_cfg, kitti_pts, len(kitti), kitti_pos,
+         ("estimate_normals", "tile_partials", "merge_partials",
+          "set_conditional"), ("accumulate_segments",), True))
+    for name, cfg, pts_np, n, pos_np, outer, body, fallback in cases:
         pts = torch.from_numpy(pts_np).to(dev)
-        n = pts.shape[0]
-        origin = origin_blocks_for_position(np.zeros(3), cfg)
+        pos = torch.from_numpy(pos_np).to(dev)
+        origin = origin_blocks_for_position(pos_np, cfg)
         eager = create_state(cfg, origin, dev)
         for _ in range(reps):
             eager, _ = integrate.insert_step(eager, pts, n, pos, cfg)
@@ -1985,16 +2191,13 @@ def run_graph(tmp):
         require(not accumulate.overflowed(dev),
                 f"{name}: K5 chunk list overflowed")
         falls_back = int(scan.tile_overflow) > 0
-        require(falls_back == (name == "fallback"),
+        require(falls_back == fallback,
                 f"{name}: tile_overflow {int(scan.tile_overflow)}")
-        outer = ["fused_tile_partials", "estimate_normals", "merge_partials",
-                 "set_conditional"]
-        body = ["tile_partials", "accumulate_segments"]
         require(g.launches == dict.fromkeys(outer, 1) and
                 g.body_launches == dict.fromkeys(body, 1),
                 f"{name}: launches per replay {g.launches}, in the IF node "
                 f"{g.body_launches}")
-        want = dict.fromkeys(outer + (body if falls_back else []), 1)
+        want = dict.fromkeys(outer + (body if falls_back else ()), 1)
         # the replays alone: kernels by name (one replay each), no
         # synchronising call from core/integrate.py
         names, busy, window = profiled(
@@ -2066,6 +2269,7 @@ def run_graph(tmp):
 
     # utils.timing on the card
     cfg = MapConfig()
+    pos = torch.zeros(3, dtype=torch.float32, device=dev)
     pts = torch.from_numpy(sphere(N_DENSE, 5.0, 420)).to(dev)
     st = create_state(cfg, origin_blocks_for_position(np.zeros(3), cfg), dev)
     st, met, report = timing.profile_insert(st, pts, N_DENSE, pos, cfg)
@@ -2190,12 +2394,14 @@ def graph_pair(cfg):
 
 def run_map_graph():
     """Phase 15: ``TSDFMap.insert`` through its CUDA graphs, bit-equal to
-    the eager insert: the dense sphere under fused, tile and pallas (three
-    clouds of different n in the 2^20 bucket), the 2048-point sparse
-    sphere under fused (the IF body runs K4 and K5), the phase-8 stream
-    with two rotations, carving off and on; no host read; launches per
-    insert; memory reserved.  Returns (launches per insert by cloud,
-    memory reserved by moment)."""
+    the eager insert: the dense sphere under fused, tile, pallas and
+    sample_tile (three clouds of different n in the 2^20 bucket), the
+    2048-point sparse sphere under fused (the IF body runs K4 and K5) and
+    under sample_tile (the IF body runs K5), the phase-8 stream with two
+    rotations, carving off and on, and under ``sparse_impl="sample_tile"``
+    (its IF body runs K5); no host read; launches per insert; memory
+    reserved.  Returns (launches per insert by cloud, memory reserved by
+    moment)."""
     from chad_tsdf_tpu_torch import MapConfig
     from chad_tsdf_tpu_torch.core import graph
     from chad_tsdf_tpu_torch.core.state import clone_state, reset_state_
@@ -2206,20 +2412,26 @@ def run_map_graph():
     per_insert = {}
     pos0 = np.zeros(3, np.float32)
     dense = sphere(N_DENSE, 5.0, 420)
+    # sample_tile's graph holds K4's partial rows of the 2^20 bucket
+    # (T x nb x 4 KiB, twice: 5.4 GB), past the cache's byte bound: the
+    # newest graph stays
     cases = [(f"dense {impl}", MapConfig(accumulate_impl=impl),
               [(dense[:n], pos0) for n in (N_DENSE, N_DENSE - 12345,
                                            900_000)])
-             for impl in ("fused", "tile", "pallas")]
-    cases.append(("sparse fused", MapConfig(max_points=2048,
-                                            accumulate_impl="fused"),
-                  [(sphere(2048, 5.0, 7 + i)[:2048 - 50 * i], pos0)
-                   for i in range(3)]))
+             for impl in ("fused", "tile", "pallas", "sample_tile")]
+    for impl in ("fused", "sample_tile"):
+        cases.append((f"sparse {impl}", MapConfig(max_points=2048,
+                                                  accumulate_impl=impl),
+                      [(sphere(2048, 5.0, 7 + i)[:2048 - 50 * i], pos0)
+                       for i in range(3)]))
     scans = ks.make_scans()
     for carving in (False, True):
         kw = dict(carve_steps=128, carve_stride=2.0, carve_subsample=2) \
             if carving else {}
         cases.append((f"stream carve {'on' if carving else 'off'}",
                       ks.stream_config(**kw), scans))
+    cases.append(("stream sample_tile",
+                  ks.stream_config(sparse_impl="sample_tile"), scans))
     for name, cfg, clouds in cases:
         gm, em = graph_pair(cfg)
         reads_all = {}
@@ -2237,8 +2449,9 @@ def run_map_graph():
         require(len(graphs) >= 1 and all(g.replays > 0 for g in graphs),
                 f"{name}: graphs {[(g.replays) for g in graphs]}")
         tile_ovf = int(gm.state.tile_overflow)
-        if name == "sparse fused":
-            require(tile_ovf > 0, "the sparse sphere did not fall back")
+        if name.startswith("sparse") or name == "stream sample_tile":
+            # the IF node's body ran
+            require(tile_ovf > 0, f"{name} did not fall back")
         elif name.startswith("dense"):
             require(tile_ovf == 0, f"{name}: tile_overflow {tile_ovf}")
         if name == "stream carve off":
@@ -2355,6 +2568,8 @@ def main() -> int:
     cfg = MapConfig()
     results = {}
     check_kernels(cfg, results)
+    torch.cuda.empty_cache()
+    check_sample_tile(cfg, results)
     torch.cuda.empty_cache()
     check_k5(cfg, results)
     check_conditional(results)
@@ -2556,7 +2771,7 @@ def main() -> int:
     micro_launches = run_micro(micro_errs, results)
 
     # ---- phase 8: the sparse streaming path ----
-    stream_launches, rk2, stream_map = run_stream(cfg)
+    stream_launches, sample_tile_launches, rk2, stream_map = run_stream(cfg)
     results["estimate_normals"]["kitti_scan"] = rk2
 
     # ---- phase 9: save on the card, device against host ----
@@ -2608,6 +2823,9 @@ def main() -> int:
                     "bound_by": r["bound_by"],
                     "library_ms": r.get("library_ms"),
                     **({"ms_int8": r["ms_int8"]} if "ms_int8" in r else {}),
+                    # K4 and K3 at the sample_tile path's shapes (phase 2)
+                    **({"sample_tile": r["sample_tile"]}
+                       if "sample_tile" in r else {}),
                     "launches_stream": stream_launches[name],
                     "launches_carve": carve_launches[name],
                     "launches_checkpoint": ckpt_launches[name],
@@ -2618,6 +2836,10 @@ def main() -> int:
                         graph_launches["dense"].get(name, 0),
                     "launches_per_replay_fallback":
                         graph_launches["fallback"].get(name, 0),
+                    "launches_per_replay_sample_tile":
+                        graph_launches["sample_tile"].get(name, 0),
+                    "launches_sample_tile_stream":
+                        sample_tile_launches[name],
                     "launches_per_insert_map": {
                         cloud: got.get(name, 0)
                         for cloud, got in map_graph_launches.items()}})

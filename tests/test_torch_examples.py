@@ -157,7 +157,8 @@ def test_script_prints_its_json(script, args, keys, tmp_path):
                                         "sparse_lidar_131k",
                                         "fallback_sphere_2048"}
         for wl in eq["workloads"].values():
-            assert set(wl) == {"xla", "fused", "tile", "pallas", "seg"}
+            assert set(wl) == {"xla", "fused", "tile", "pallas", "seg",
+                               "sample_tile"}
             for name, r in wl.items():
                 if name != "xla":
                     assert r["pass"] and r["dir_keys_equal"]

@@ -130,17 +130,15 @@ def test_rotation_and_finalize_match_jax(tmp_path):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    for kw in ({"accumulate_impl": "sample_tile"},
-               {"sparse_impl": "sample_tile"}):
-        with pytest.raises(NotImplementedError, match="not to be ported"):
-            TSDFMap(config=MapConfig(**kw), device="cpu")
     # ported since: the sparse backend, packed ingest, the .grid dump,
-    # device marching cubes and carving
+    # device marching cubes, carving and the sample_tile backend (as the
+    # backend and as the sparse one; nothing is left that raises)
     monkeypatch.chdir(tmp_path)
     for kw in ({"accumulate_impl": "seg"}, {"packed_ingest": True},
                {"accumulate_impl": "seg", "packed_ingest": True},
                {"save_grid": True}, {"mesh_impl": "device"},
-               {"carve_steps": 4}):
+               {"carve_steps": 4}, {"accumulate_impl": "sample_tile"},
+               {"sparse_impl": "sample_tile"}):
         m = TSDFMap(config=MapConfig(max_points=1024, block_capacity=1024,
                                      touched_capacity=1024, **kw),
                     device="cpu")
