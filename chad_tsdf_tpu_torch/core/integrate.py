@@ -21,7 +21,8 @@ Six backends, chosen by ``MapConfig.accumulate_impl``:
 * ``sample_tile`` (a ``sparse_impl`` choice for sparse scans):
   :func:`insert_step_sample_tiled` — sample grids, one global sample sort,
   K4 over 1024-sample tiles of the sorted stream (list of
-  ``sparse_tile_nb`` blocks), K3; samples beyond a tile's list go through
+  ``sparse_tile_nb`` blocks; on the card the kernel made for a sorted
+  stream, ``tile_accum.tile_partials_sorted``), K3; samples beyond a tile's list go through
   the sort-based :func:`update_pool`.
 * ``pallas``: sample grids, one global sample sort, and :func:`update_pool`
   through K5.
@@ -883,17 +884,17 @@ def _sample_tiled_body(state: ActiveMapState, points, n_points, position,
 def sample_tiled_update(state: ActiveMapState, batch: SampleBatch,
                         config: MapConfig):
     """K4 and K3 over a block-sorted sample batch (:func:`sort_samples`):
-    K4 on the (1, S) grid of the batch's keys and unpacked payloads with a
-    list of ``sparse_tile_nb`` blocks, then :func:`update_pool_tiled`.
-    Returns (state, metrics, tile_ovf, make_fallback): the fallback's
-    samples are the batch's own keys and payloads where K4's mask is set,
-    INT32_MAX and 0 elsewhere (nothing is re-packed)."""
-    s = batch.bkey.shape[0]
-    s_okey, s_sd = unpack_payload(batch.payload, config.sdf_trunc)
+    K4 on the (1, S) grid of the batch's keys and payload words with a list
+    of ``sparse_tile_nb`` blocks (``tile_partials_sorted``: the JAX
+    package's K4 on the unpacked payloads, whose sds it re-quantizes to the
+    same words), then :func:`update_pool_tiled`.  Returns (state, metrics,
+    tile_ovf, make_fallback): the fallback's samples are the batch's own
+    keys and payloads where K4's mask is set, INT32_MAX and 0 elsewhere
+    (nothing is re-packed)."""
     n_valid = (batch.bkey != INT32_MAX).sum(dtype=torch.int32)
-    pkeys, psd, pw, ovfmask = tile_accum.tile_partials(
-        batch.bkey.reshape(1, s), s_okey.reshape(1, s), s_sd.reshape(1, s),
-        config.sparse_tile_nb, config.sdf_trunc)
+    # the batch is sorted by sort_samples: the unsorted word is not read
+    pkeys, psd, pw, ovfmask, _ = tile_accum.tile_partials_sorted(
+        batch.bkey, batch.payload, config.sparse_tile_nb, config.sdf_trunc)
     ovf = ovfmask.reshape(-1) != 0
     tile_ovf = ovf.sum(dtype=torch.int32)
     _stage("K4 partials")

@@ -18,6 +18,8 @@ Kernels and the TPU kernels they replace (``chad_tsdf_tpu/ops/...``):
 * K2 ``estimate_normals``     <- normals_pallas.py:estimate_normals_pallas
 * K3 ``merge_partials``       <- tile_accum.py:merge_partials
 * K4 ``tile_partials``        <- tile_accum.py:tile_partials
+* K4 ``tile_partials_sorted`` <- tile_accum.py:tile_partials, on the
+  ``sample_tile`` insert's block-sorted sample stream
 * K5 ``accumulate_segments``  <- accumulate.py:accumulate_pallas (its
   chunk list alone: ``plan_chunks``, for checks)
 * M1 ``micro_stagea_phases``  <- scripts/micro_stagea_phases.py:build
@@ -61,6 +63,7 @@ _SIGNATURES = {
     "estimate_normals": [_P] * 6 + [_I] * 2 + [_F] + [_P] * 4,
     "merge_partials": [_P] * 10 + [_I],
     "tile_partials": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 4,
+    "tile_partials_sorted": [_P] * 2 + [_I] * 2 + [_F] + [_P] * 6,
     "accumulate_segments": [_P] * 6 + [_I] * 2 + [_F] + [_I] * 2 +
                            [_P] * 3,
     "plan_chunks": [_P] * 2 + [_I] * 4 + [_P],

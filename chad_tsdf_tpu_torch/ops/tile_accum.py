@@ -13,6 +13,16 @@ all their ray samples) touches a handful of distinct blocks.
   *live* rows, whose list entry is not INT32_MAX; dead rows hold whatever
   the buffer held (K3 and :func:`plan_merge` never read them), where the
   plain version writes zeros.  Compare the two on :func:`live_rows`.
+* **K4 on a block-sorted stream** :func:`tile_partials_sorted`: K4's
+  function on the (1, S) grid of samples sorted by block key, as the
+  ``sample_tile`` insert runs it, taking the sort path's payload words
+  (``okey << 16 | q``) instead of unpacked offsets and sds.  On sorted
+  input a tile's nb smallest distinct keys are its first nb runs, so ranks
+  come from run heads; its outputs equal ``tile_partials(bkey[None],
+  *unpack_payload(payload))``'s, and it takes any nb on the card.  It also
+  returns a word that the kernel sets where a tile's valid keys descend;
+  the plain version :func:`tile_partials_sorted_plain` raises there.
+  CUDA kernel ``csrc/tile_sorted.cu``.
 * **K3** :func:`merge_partials`: adds slot-sorted partial rows into the
   pool in place, one 8-row pool group per CTA, following the plan of
   :func:`plan_merge`.  CUDA kernel ``csrc/tile_accum.cu``; plain version
@@ -183,6 +193,93 @@ def tile_partials(bkey, okey, sd, nb: int, sdf_trunc: float):
     kernels.launch("tile_partials", p(bkey), p(okey), p(sd), n, k, nb,
                    qscale, dscale, p(pkeys), p(psd), p(pw), p(ovfmask))
     return pkeys, psd, pw, ovfmask
+
+
+# --------------------------------------------------------------------------
+# K4 on a block-sorted sample stream
+# --------------------------------------------------------------------------
+
+def tile_partials_sorted_plain(bkey, payload, nb: int, sdf_trunc: float):
+    """Plain PyTorch :func:`tile_partials_sorted`: same outputs (its word is
+    always clear); raises a ValueError where a tile's valid keys descend."""
+    s = bkey.shape[0]
+    t = s // TILE
+    dev = bkey.device
+    key = bkey.reshape(t, TILE)
+    prev = torch.cat([torch.full((t, 1), -1, dtype=key.dtype, device=dev),
+                      key[:, :-1]], dim=1)
+    desc = (key < prev).any(dim=1)
+    if bool(desc.any()):
+        bad = torch.nonzero(desc).reshape(-1)[:8].tolist()
+        raise ValueError(f"tile_partials_sorted: the keys of tiles {bad} "
+                         f"are not ascending (invalid samples last)")
+    valid = key != INT32_MAX
+    head = valid & (key != prev)
+    rank = torch.cumsum(head, dim=1, dtype=torch.int64) - 1
+    cov = valid & (rank < nb)
+
+    lst = torch.full((t, nb + 1), INT32_MAX, dtype=torch.int32, device=dev)
+    lst.scatter_(1, torch.where(head & cov, rank, nb), key)
+    pkeys = lst[:, :nb].reshape(t * nb, 1).contiguous()
+    ovfmask = (valid & ~cov).to(torch.int32).reshape(1, s)
+
+    word = payload.reshape(t, TILE)
+    off = ((word >> 16) & 0x1FF).to(torch.int64)
+    q = ((word << 16) >> 16).to(torch.int64)
+    tile_idx = torch.arange(t, device=dev)[:, None]
+    flat = torch.where(cov, (tile_idx * nb + rank) * 512 + off, 0)
+    flat = flat.reshape(-1)
+    accq = torch.zeros(t * nb * 512, dtype=torch.int64, device=dev)
+    accq.index_add_(0, flat, torch.where(cov, q, 0).reshape(-1))
+    accw = torch.zeros(t * nb * 512, dtype=torch.int64, device=dev)
+    accw.index_add_(0, flat, cov.to(torch.int64).reshape(-1))
+    _, dscale = sd_scales(sdf_trunc)
+    psd = (accq.to(torch.float32) * dscale).reshape(t * nb, 512)
+    pw = accw.to(torch.float32).reshape(t * nb, 512)
+    return (pkeys, psd, pw, ovfmask,
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def tile_partials_sorted(bkey, payload, nb: int, sdf_trunc: float):
+    """K4 over the (1, S) grid of a block-sorted sample stream.
+
+    bkey: i32[S], ascending in each tile of ``TILE`` samples, invalid
+    samples (``INT32_MAX``) last; payload: i32[S], ``okey << 16 | (q &
+    0xFFFF)`` with q on the SD_QUANT grid of ``sdf_trunc`` (core/integrate
+    .py ``pack_payload``).  S % TILE == 0, any nb >= 1.
+
+    Returns (pkeys i32[T*nb, 1], psd f32[T*nb, 512], pw f32[T*nb, 512],
+    ovfmask i32[1, S], unsorted i32[1]): the first four equal
+    :func:`tile_partials` of ``(bkey[None], *unpack_payload(payload))``
+    (the kernel leaves dead rows unwritten, as K4 does); ``unsorted`` is
+    set on the card where a tile's valid keys descend (the outputs are then
+    not K4's), and never read here.  A CPU tensor takes the plain version,
+    which raises there instead.  The insert path discards the word (its
+    stream comes straight from ``sort_samples``): on the card nothing
+    checks that path's order; ``chip_smoke.py`` reads the word.
+    """
+    s = bkey.shape[0]
+    check_tile_shape(1, s, nb)
+    if bkey.device.type == "cpu":
+        return tile_partials_sorted_plain(bkey, payload, nb, sdf_trunc)
+    kernels.check(bkey, "bkey", torch.int32, (s,))
+    kernels.check(payload, "payload", torch.int32, (s,), bkey.device)
+    t = s // TILE
+    dev = bkey.device
+    pkeys = torch.empty((t * nb, 1), dtype=torch.int32, device=dev)
+    psd = torch.empty((t * nb, 512), dtype=torch.float32, device=dev)
+    pw = torch.empty_like(psd)
+    ovfmask = torch.empty((1, s), dtype=torch.int32, device=dev)
+    # the kernel's list of live rows (index, first and end sample), at most
+    # min(nb, TILE) a tile; the unsorted word and the list's length
+    rows = torch.empty((t * min(nb, TILE), 4), dtype=torch.int32, device=dev)
+    word = torch.zeros(2, dtype=torch.int32, device=dev)
+    _, dscale = sd_scales(sdf_trunc)
+    p = kernels.ptr
+    kernels.launch("tile_partials_sorted", p(bkey), p(payload), s, nb,
+                   dscale, p(pkeys), p(psd), p(pw), p(ovfmask), p(rows),
+                   p(word))
+    return pkeys, psd, pw, ovfmask, word[:1]
 
 
 # --------------------------------------------------------------------------

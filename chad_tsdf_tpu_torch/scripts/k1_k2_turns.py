@@ -17,8 +17,16 @@ dense-voxel cloud (64 voxels x 16,384 points) at the default MapConfig; K4
 on the sample grids K1 walks.  Each kernel is timed old, new, new, old
 (``cuda_ms``: median of 20 calls, device time only); the two versions are
 held against each other first (K2 normals within a dot of 1e-3, K1 and K4
-lists, counters or masks and live partial rows equal).  Prints the card's
-name and power limit, then a JSON line.
+lists, counters or masks and live partial rows equal).
+
+``K4_sample_stream``: the ``sample_tile`` insert's K4 on one KITTI-shaped
+scan (``kitti_stream.make_scans(1)``, padded to its bucket, walked into
+samples and sorted as ``insert_step_sample_tiled`` does: 1,310,720
+samples, nb = ``sparse_tile_nb``).  ``old`` is the path before the sorted
+K4, ``unpack_payload`` and the older general K4 in one timed call; ``new``
+is this checkout's ``tile_partials_sorted``; held equal first; with the
+sorted K4's bound (``k4_stream_bytes`` over 3.35 TB/s).  Prints the
+card's name and power limit, then a JSON line.
 """
 
 from __future__ import annotations
@@ -34,10 +42,11 @@ import torch
 
 from .. import kernels
 from ..config import MapConfig
+from ..core import integrate
 from ..ops import dda, fused_integrate, normals_cuda, tile_accum
 from ..core.state import origin_blocks_for_position
 from ..profile_insert import sorted_cloud, sphere, voxel_clusters
-from . import cuda_ms, require_cuda
+from . import cuda_ms, k4_stream_bytes, kitti_stream, require_cuda
 
 INT32_MAX = 2**31 - 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -76,6 +85,51 @@ def turns(old, new, reps):
     t = [cuda_ms(old, reps), cuda_ms(new, reps), cuda_ms(new, reps),
          cuda_ms(old, reps)]
     return {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+
+
+def sample_stream_turns(lib, dev, reps):
+    """The older unpack + general K4 against the sorted K4 on one
+    KITTI-shaped scan's block-sorted sample stream (``K4_sample_stream``)."""
+    cfg = kitti_stream.stream_config(accumulate_impl="sample_tile")
+    (pts, pos), = kitti_stream.make_scans(1)
+    bucket = next(b for b in cfg.buckets if b >= len(pts))
+    padded = torch.from_numpy(np.resize(pts, (bucket, 3))).to(dev)
+    origin = torch.from_numpy(origin_blocks_for_position(pos, cfg)).to(dev)
+    batch = integrate.sort_samples(integrate.compute_samples(
+        padded, len(pts), torch.from_numpy(pos).to(dev), origin, cfg))
+    bkey, payload = batch.bkey, batch.payload
+    s, nb, trunc = bkey.shape[0], cfg.sparse_tile_nb, cfg.sdf_trunc
+    qscale, dscale = tile_accum.sd_scales(trunc)
+    p = kernels.ptr
+    o_keys = torch.empty((s // 1024 * nb, 1), dtype=torch.int32, device=dev)
+    o_sd = torch.empty((s // 1024 * nb, 512), dtype=torch.float32,
+                       device=dev)
+    o_w = torch.empty_like(o_sd)
+    o_mask = torch.empty((1, s), dtype=torch.int32, device=dev)
+
+    def k4_old():
+        okey, sd = integrate.unpack_payload(payload, trunc)
+        _call(lib.chad_tile_partials, p(bkey), p(okey), p(sd), s, 1, nb,
+              qscale, dscale, p(o_keys), p(o_sd), p(o_w), p(o_mask))
+
+    def k4_new():
+        return tile_accum.tile_partials_sorted(bkey, payload, nb, trunc)
+
+    k4_old()
+    new = k4_new()
+    live = tile_accum.live_rows(new[0])
+    if not (torch.equal(new[0], o_keys) and torch.equal(new[3], o_mask) and
+            torch.equal(new[1][live], o_sd[live]) and
+            torch.equal(new[2][live], o_w[live]) and int(new[4][0]) == 0):
+        raise AssertionError("the older unpack + K4 and the sorted K4 differ")
+    n_live = int(live.sum())
+    nbytes = k4_stream_bytes(bkey, new[3], nb, n_live, 4)
+    res = dict(turns(k4_old, k4_new, reps), samples=s,
+               valid_samples=int((bkey != INT32_MAX).sum()),
+               not_covered=int(new[3].sum()), nb=nb, live_rows=n_live,
+               bound_bytes=nbytes, bound_ms=nbytes / 3.35e12 * 1e3)
+    print(f"K4 sample stream: {res}", flush=True)
+    return res
 
 
 def main(argv=None) -> int:
@@ -185,6 +239,8 @@ def main(argv=None) -> int:
             raise AssertionError("K4 old and new differ")
         out["K4_sphere"] = turns(k4_old, k4_new, args.reps)
         print(f"K4 sphere: {out['K4_sphere']}", flush=True)
+
+    out["K4_sample_stream"] = sample_stream_turns(lib, dev, args.reps)
     print(json.dumps(out))
     return 0
 

@@ -19,10 +19,18 @@ runs, failing with a non-zero exit on the first error:
    must give bit-equal normals; K1 and K4 with block lists of 128 and 256
    (the wide form: 16-bit ranks beside the sample words) on one sorted
    KITTI-shaped scan at K = 10, against their plain versions and each
-   other; the ``sample_tile`` path's K4 at (K = 1, nb = 128) on that scan's
-   block-sorted sample stream and K3 merging its 163,840 partial-row slots,
-   each against its plain version, timed, with its bound (K3 also against
-   ``index_add_``); K5 segment accumulate on the ``pallas``
+   other; the general K4 at (K = 1, nb = 128) on that scan's block-sorted
+   sample stream and K3 merging its 163,840 partial-row slots, each against
+   its plain version, timed, with its bound (K3 also against
+   ``index_add_``); the sorted K4 (``tile_partials_sorted``, the
+   ``sample_tile`` path's K4) on the same stream's keys and payload words:
+   equal to its plain version and bit-equal to the general K4 on the
+   unpacked stream at nb 128 and 8, equal to its plain version at nb 4,096
+   (past the general kernel's limit) on the 64 tiles with the most runs,
+   its unsorted word clear and set on a copy with one tile's keys
+   shuffled; timed beside its plain version and the parent path
+   (``unpack_payload`` and the general K4 in one call); K5 segment
+   accumulate on the ``pallas``
    backend's tables of the 1M-point sphere, the dense-voxel cloud and a
    single-voxel cloud (2^20 points in one voxel), and on a synthetic table
    with segments on chunk boundaries: its device chunk list against the
@@ -74,8 +82,9 @@ runs, failing with a non-zero exit on the first error:
    ``seg`` eagerly, in turns (median scans/s of each), the final maps'
    directories and weights equal to each other (the two ``seg`` ones bit
    for bit), rotated-out submaps included, the ``sample_tile`` graph
-   launching K2, K4, K3 and the IF node's kernel a replay and K5 in the IF
-   node, whose body runs (``tile_overflow`` > 0);
+   launching K2, the sorted K4, K3 and the IF node's kernel a replay and K5
+   in the IF node, whose body runs (``tile_overflow`` > 0), and the general
+   K4 not at all;
    ``seg`` against the scatter backend and packed against f32 ingest on one
    scan; two ``seg`` streams bit-equal in pools and DAG counters, and a
    stream drained after every insert equal to the deferred one;
@@ -133,8 +142,8 @@ runs, failing with a non-zero exit on the first error:
    order and the five counters) on the 2^20-point sphere (K1, K2, K3 in
    the graph, K4 and K5 in its IF node, not run) and on phase 4's
    2048-point sparse sphere under ``fused`` (the IF node runs K4 and K5)
-   and on one KITTI-shaped scan under ``sample_tile`` (K2, K4, K3 in the
-   graph, K5 in its IF node, which runs); the launches per replay as
+   and on one KITTI-shaped scan under ``sample_tile`` (K2, the sorted K4,
+   K3 in the graph, K5 in its IF node, which runs); the launches per replay as
    captured, and as the profiler names the kernels of 4 replays; no
    synchronising call from ``core/integrate.py``
    while replaying; ms per insert through the graph, the eager loop and a
@@ -153,7 +162,8 @@ runs, failing with a non-zero exit on the first error:
    rotations, carving off and on, and under ``sparse_impl="sample_tile"``
    (the IF node runs K5; then the drain's ``stats()`` equal); the launches
    per replay outside and inside
-   the IF node, and for the sphere clouds the kernels the profiler sees in
+   the IF node (under ``sample_tile`` the sorted K4 once outside it and the
+   general K4 nowhere), and for the sphere clouds the kernels the profiler sees in
    one more replay; the graphs' bytes and the memory reserved before,
    during and after; the cost of the rotation design (the stub's copy of
    the graph's state and its reset in place, against an eager insert and
@@ -175,14 +185,16 @@ must launch, just before phase 7's timing runs, where M1-M3 must launch,
 and just before phase 8's stream, where K2 must launch twice (the eager
 scan and the capture), the graph one K2 a replay, and K1, K3, K4 and K5
 not at all; and before each of phase 8's ``sample_tile`` streams, where
-K2, K4, K3 and ``set_conditional`` must launch and K1 not at all.
+K2, the sorted K4, K3 and ``set_conditional`` must launch and K1 and the
+general K4 not at all.
 Phases 10-12 reset them just before their own inserts and read them right
 after (K2 on the carved stream and the checkpoint's 2 scans, K1-K3 on the
 loop closure's sphere passes); phase 13 just before one N = 4 dense insert
 (K1-K3) and the N = 4 stream (K2, K3).
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
-for K4-K5, phase 7 for M1-M3 (and, as ``launches_stream``,
+for K4-K5, phase 8's ``sample_tile`` stream for the sorted K4, phase 7 for
+M1-M3 (and, as ``launches_stream``,
 ``launches_carve``, ``launches_checkpoint`` and ``launches_loop_closure``,
 in the inserts of phases 8, 10, 11 and 12, and as
 ``launches_sharded_dense`` and ``launches_sharded_stream`` in phase 13's,
@@ -199,8 +211,9 @@ larger of the bytes the function must move (each input read once, each
 output written once)
 over 3.35 TB/s and its operations over the peak rate of their type
 (``bound_by`` says which); M3's entry also has its int8 time,
-``ms_int8`` (``ms`` is bf16's), and K4's and K3's entries their numbers
-at the ``sample_tile`` path's shapes under ``sample_tile``.  The last line is
+``ms_int8`` (``ms`` is bf16's), K4's and K3's entries their numbers
+at the ``sample_tile`` path's shapes under ``sample_tile``, and the sorted
+K4's entry the parent path's time, ``parent_path_ms``.  The last line is
 ``{"ok": true, "device": {...}}``.  The script imports no JAX and nothing of
 the JAX package ``chad_tsdf_tpu``, and checks that neither was loaded.
 """
@@ -233,6 +246,9 @@ KERNELS = {
                        "chad_tsdf_tpu/ops/tile_accum.py:242"),
     "tile_partials": ("chad_tsdf_tpu_torch/csrc/tile_accum.cu",
                       "chad_tsdf_tpu/ops/tile_accum.py:134"),
+    # K4 on the sample_tile path's block-sorted sample stream
+    "tile_partials_sorted": ("chad_tsdf_tpu_torch/csrc/tile_sorted.cu",
+                             "chad_tsdf_tpu/ops/tile_accum.py:134"),
     "accumulate_segments": ("chad_tsdf_tpu_torch/csrc/accumulate.cu",
                             "chad_tsdf_tpu/ops/accumulate.py:223"),
     "micro_stagea_phases": ("chad_tsdf_tpu_torch/csrc/micro.cu",
@@ -557,6 +573,40 @@ def hold_k4(k4, targs, what):
     return live, float((k4[1][live] - p4[1][live]).abs().max())
 
 
+def hold_k4_sorted(k4s, bkey, payload, nb, trunc, what, general=True):
+    """The sorted K4's outputs ``k4s`` on the stream (``bkey``, ``payload``)
+    against its plain version (block lists and overflow masks equal,
+    weights equal on the live rows, sd within SD_TOL per unit weight) and,
+    with ``general``, bit-equal to the general K4 on the unpacked stream
+    (lists, masks, both planes' live rows); its unsorted word clear.
+    Returns (the live-row mask, max |sd difference| to the plain version
+    on the live rows)."""
+    from chad_tsdf_tpu_torch.core import integrate
+    from chad_tsdf_tpu_torch.ops import tile_accum
+    require(int(k4s[4][0]) == 0,
+            f"sorted K4 set its unsorted word on a sorted stream ({what})")
+    p = tile_accum.tile_partials_sorted_plain(bkey, payload, nb, trunc)
+    require(torch.equal(k4s[0], p[0]), f"sorted K4 block lists differ ({what})")
+    require(torch.equal(k4s[3], p[3]), f"sorted K4 ovfmask differs ({what})")
+    live = tile_accum.live_rows(p[0])
+    require(torch.equal(k4s[2][live], p[2][live]),
+            f"sorted K4 weights differ ({what})")
+    err = sd_err_per_weight(k4s[1][live], p[1][live], p[2][live])
+    require(err < SD_TOL, f"sorted K4 sd error {err} ({what})")
+    max_abs = float((k4s[1][live] - p[1][live]).abs().max())
+    del p
+    if general:
+        s = bkey.shape[0]
+        okey, sd = integrate.unpack_payload(payload, trunc)
+        g = tile_accum.tile_partials(bkey.reshape(1, s), okey.reshape(1, s),
+                                     sd.reshape(1, s), nb, trunc)
+        require(torch.equal(k4s[0], g[0]) and torch.equal(k4s[3], g[3]) and
+                torch.equal(k4s[1][live], g[1][live]) and
+                torch.equal(k4s[2][live], g[2][live]),
+                f"sorted K4 is not bit-equal to the general K4 ({what})")
+    return live, max_abs
+
+
 def kitti_scan_inputs(cfg, dev):
     """Scan 0 of phase 8's stream padded to its 131,072-point bucket (with
     points of the scan marked as padding), Morton-sorted, with K2's
@@ -590,6 +640,7 @@ def check_sample_tile(cfg, results):
     from chad_tsdf_tpu_torch.core.state import (create_state,
                                                 origin_blocks_for_position)
     from chad_tsdf_tpu_torch.ops import dda, fused_integrate, tile_accum
+    from chad_tsdf_tpu_torch.scripts import k4_stream_bytes
     from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
 
     dev = torch.device("cuda")
@@ -656,13 +707,94 @@ def check_sample_tile(cfg, results):
           "ms": cuda_ms(lambda: tile_accum.tile_partials(*targs)),
           "plain_ms": cuda_ms(lambda: tile_accum.tile_partials_plain(
               *targs), reps=3)}
-    # each sample read once (key, offset, sd: 12 B) and its mask written
-    # (4 B); the list and the live rows written
-    r4["bound_ms"], r4["bound_by"] = bound(
-        16 * s + tiles * scfg.sparse_tile_nb * 4 + n_live * 4096)
+    # keys read and mask written; offset and sd (8 B) read for each covered
+    # sample; the list and the live rows written
+    r4["bound_ms"], r4["bound_by"] = bound(k4_stream_bytes(
+        batch.bkey, k4[3], scfg.sparse_tile_nb, n_live, 8))
     results["tile_partials"]["sample_tile"] = r4
     log(f"K4 tile_partials on the sample stream (K = 1, nb "
         f"{scfg.sparse_tile_nb}): {r4}")
+
+    # ---- the sorted K4 on the same stream, as sample_tiled_update runs
+    # it: the batch's keys and payload words ----
+    nb, trunc = scfg.sparse_tile_nb, scfg.sdf_trunc
+    bkey, payload = batch.bkey, batch.payload
+    k4s = tile_accum.tile_partials_sorted(bkey, payload, nb, trunc)
+    live_s, err_s = hold_k4_sorted(k4s, bkey, payload, nb, trunc,
+                                   f"sample stream, nb {nb}")
+    require(torch.equal(live_s, live4), "sorted and general K4 live rows")
+    n_live = int(live_s.sum())
+
+    def parent_path():
+        ok, sd_ = integrate.unpack_payload(payload, trunc)
+        return tile_accum.tile_partials(bkey.reshape(1, s), ok.reshape(1, s),
+                                        sd_.reshape(1, s), nb, trunc)
+
+    rs = {"samples": s, "valid_samples": n_valid, "tiles": tiles, "nb": nb,
+          "live_rows": n_live, "not_covered": int(k4s[3].sum()),
+          "max_abs_err": err_s, "unsorted_word": int(k4s[4][0]),
+          "ms": cuda_ms(lambda: tile_accum.tile_partials_sorted(
+              bkey, payload, nb, trunc)),
+          "plain_ms": cuda_ms(lambda: tile_accum.tile_partials_sorted_plain(
+              bkey, payload, nb, trunc), reps=3),
+          "parent_path_ms": cuda_ms(parent_path),
+          "general_k4_ms": r4["ms"], "library_ms": None}
+    # keys read and mask written; the payload word (4 B) read for each
+    # covered sample; the list and the live rows written
+    rs["bound_ms"], rs["bound_by"] = bound(
+        k4_stream_bytes(bkey, k4s[3], nb, n_live, 4))
+    del k4s
+
+    # a copy with one tile's keys shuffled: the word must be set
+    key_t = bkey.reshape(tiles, 1024)
+    prev = torch.cat([torch.full((tiles, 1), -1, dtype=torch.int32,
+                                 device=dev), key_t[:, :-1]], dim=1)
+    valid_t = key_t != 2**31 - 1
+    runs = (valid_t & (key_t != prev)).sum(1)
+    worst = int(runs.argmax())
+    gen = torch.Generator().manual_seed(16)
+    shuffled = bkey.clone().reshape(tiles, 1024)
+    shuffled[worst] = shuffled[worst][torch.randperm(1024, generator=gen)
+                                      .to(dev)]
+    sh = shuffled.reshape(-1)
+    require(bool((sh[1:] < sh[:-1]).any()), "the shuffle left the keys sorted")
+    word = int(tile_accum.tile_partials_sorted(sh, payload, nb, trunc)[4][0])
+    require(word == 1, f"sorted K4's unsorted word is {word} on a stream "
+                       f"with tile {worst} shuffled")
+    rs["shuffled"] = {"tile": worst, "runs": int(runs[worst]),
+                      "unsorted_word": word}
+    del shuffled, sh
+
+    # nb 8 on the whole stream; nb 4,096 (past the general kernel's
+    # max_nb(1)) on the 64 tiles with the most runs, against the plain
+    # version alone
+    k8 = tile_accum.tile_partials_sorted(bkey, payload, 8, trunc)
+    _, err8 = hold_k4_sorted(k8, bkey, payload, 8, trunc,
+                             "sample stream, nb 8")
+    rs["nb8"] = {"not_covered": int(k8[3].sum()), "max_abs_err": err8,
+                 "ms": cuda_ms(lambda: tile_accum.tile_partials_sorted(
+                     bkey, payload, 8, trunc))}
+    del k8
+    pick = torch.sort(torch.topk(runs, 64).indices).values
+    sub_key = key_t[pick].reshape(-1).contiguous()
+    sub_pay = payload.reshape(tiles, 1024)[pick].reshape(-1).contiguous()
+    require(4096 > tile_accum.max_nb(1), "nb 4,096 is within max_nb(1)")
+    kbig = tile_accum.tile_partials_sorted(sub_key, sub_pay, 4096, trunc)
+    _, errb = hold_k4_sorted(kbig, sub_key, sub_pay, 4096, trunc,
+                             "64 tiles of the sample stream, nb 4096",
+                             general=False)
+    require(int(kbig[3].sum()) == 0, "a list of 4,096 blocks overflowed")
+    rs["nb4096"] = {"tiles": 64, "max_runs": int(runs.max()),
+                    "live_rows": int(tile_accum.live_rows(kbig[0]).sum()),
+                    "max_abs_err": errb,
+                    "ms": cuda_ms(lambda: tile_accum.tile_partials_sorted(
+                        sub_key, sub_pay, 4096, trunc))}
+    del kbig
+    results["tile_partials_sorted"] = rs
+    log(f"sorted K4 tile_partials_sorted on the sample stream: equal to its "
+        f"plain version and bit-equal to the general K4 at nb {nb} and 8, "
+        f"equal to its plain version at nb 4096 on 64 tiles, its word clear "
+        f"on sorted input and set with tile {worst} shuffled: {rs}")
 
     # ---- K3 at this path's shapes: T x nb slots into a fresh pool ----
     state = create_state(scfg, origin_blocks_for_position(pos_np, scfg), dev)
@@ -1048,15 +1180,17 @@ def run_stream(cfg):
                         f"{sg.replays} replays, launches {sg.launches}, in "
                         f"its IF node {sg.body_launches}")
                 for k in ("fused_tile_partials", "merge_partials",
-                          "tile_partials", "accumulate_segments"):
+                          "tile_partials", "tile_partials_sorted",
+                          "accumulate_segments"):
                     require(launches[k] == 0, f"{k} launched on the seg "
                                               f"stream")
                 stream_launches = launches
             if name == "sample_tile":
-                # K2, K4, K3 and the IF node's kernel a replay; K5 in the
-                # IF node's body, which runs where a tile's list overflowed
+                # K2, the sorted K4, K3 and the IF node's kernel a replay;
+                # K5 in the IF node's body, which runs where a tile's list
+                # overflowed; the general K4 nowhere
                 (sg,) = m._graphs.values()
-                outer = ("estimate_normals", "tile_partials",
+                outer = ("estimate_normals", "tile_partials_sorted",
                          "merge_partials", "set_conditional")
                 require(sg.replays == len(scans) - 1 and
                         sg.launches == dict.fromkeys(outer, 1) and
@@ -1065,7 +1199,8 @@ def run_stream(cfg):
                         f"launches {sg.launches}, in its IF node "
                         f"{sg.body_launches}")
                 require(all(launches[k] > 0 for k in outer) and
-                        launches["fused_tile_partials"] == 0,
+                        launches["fused_tile_partials"] == 0 and
+                        launches["tile_partials"] == 0,
                         f"sample_tile stream launches {launches}")
                 sample_tile_launches = launches
             if name == "seg eager":
@@ -2084,12 +2219,14 @@ def run_sharded(tmp):
     return dense_launches, stream_launches
 
 
-# the CUDA symbols each kernel's wrapper launches (the profiler's names)
+# the CUDA symbol each kernel's wrapper launches once a call (the profiler's
+# names)
 KERNEL_SYMBOLS = {
     "fused_tile_partials": ("fused_tile_kernel",),
     "estimate_normals": ("normals_combine_kernel",),
     "merge_partials": ("merge_partials_kernel",),
     "tile_partials": ("tile_partials_kernel",),
+    "tile_partials_sorted": ("tile_heads_kernel",),
     "accumulate_segments": ("accumulate_chunks_kernel",),
     "set_conditional": ("set_conditional_kernel",),
 }
@@ -2165,7 +2302,7 @@ def run_graph(tmp):
          sphere(2048, 5.0, 7), 2048, np.zeros(3, np.float32), fused_outer,
          tile_body, True),
         ("sample_tile", kitti_cfg, kitti_pts, len(kitti), kitti_pos,
-         ("estimate_normals", "tile_partials", "merge_partials",
+         ("estimate_normals", "tile_partials_sorted", "merge_partials",
           "set_conditional"), ("accumulate_segments",), True))
     for name, cfg, pts_np, n, pos_np, outer, body, fallback in cases:
         pts = torch.from_numpy(pts_np).to(dev)
@@ -2490,6 +2627,14 @@ def run_map_graph():
             require(gs == es, f"{name}: stats after the drain differ")
         (g,) = graphs[:1]
         fell = tile_ovf > 0
+        if "sample_tile" in name:
+            # the sorted K4 once a replay outside the IF node, the general
+            # K4 nowhere in the graph
+            require(g.launches.get("tile_partials_sorted") == 1 and
+                    "tile_partials" not in g.launches and
+                    "tile_partials" not in g.body_launches,
+                    f"{name}: launches per replay {g.launches}, in the IF "
+                    f"node {g.body_launches}")
         per_insert[name] = {k: g.launches.get(k, 0) + (
             g.body_launches.get(k, 0) if fell else 0)
             for k in set(g.launches) | set(g.body_launches)}
@@ -2806,6 +2951,10 @@ def main() -> int:
     # ---- result ----
     launches = dict(dense_launches,
                     tile_partials=sparse_launches["tile_partials"],
+                    # the main path of the sorted K4: phase 8's sample_tile
+                    # stream
+                    tile_partials_sorted=sample_tile_launches[
+                        "tile_partials_sorted"],
                     accumulate_segments=sparse_launches[
                         "accumulate_segments"],
                     **{k: micro_launches[k] for k in (
@@ -2826,6 +2975,10 @@ def main() -> int:
                     # K4 and K3 at the sample_tile path's shapes (phase 2)
                     **({"sample_tile": r["sample_tile"]}
                        if "sample_tile" in r else {}),
+                    # the sorted K4: the general K4 and the unpack it
+                    # replaces on the same stream, in one timed call
+                    **({"parent_path_ms": r["parent_path_ms"]}
+                       if "parent_path_ms" in r else {}),
                     "launches_stream": stream_launches[name],
                     "launches_carve": carve_launches[name],
                     "launches_checkpoint": ckpt_launches[name],
