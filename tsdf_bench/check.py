@@ -1,0 +1,204 @@
+"""What decides ``correct``: the program's outputs read back, the plain
+reference (``reference/tsdf_ref.py``) worked out again from the same
+inputs, and the numbers compared.
+
+Numbers (each with the limit the workload file gives it):
+
+* ``w_mismatch``: voxels whose weight differs from the reference's sample
+  count, a voxel missing on one side counting once: in the active map
+  (f32 counts) and in each finished submap checked (8-bit weight codes,
+  ``min(count, 254)``);
+* ``sd_off_share``: the share of the active map's voxels whose mean
+  signed distance (``pool_sd / pool_w``) lies farther from the reference's
+  than ``SD_OFF_M`` plus the rounding bound of the program's f32 sum over
+  the inserts that touched the voxel (``sd_tolerance``);
+* ``leaf_off_share``: the share of a finished submap's voxels whose 8-bit
+  signed-distance code (``leaf_arrays``) differs from the code of the
+  reference's mean;
+* ``mesh_off_share``: the share of the last saved mesh's vertices and the
+  reference's marching-cubes vertices that have no vertex of the other
+  side within 1e-5 m.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .reference import tsdf_ref as R
+
+MATCH_M = 1e-5
+# 5x the widest gap of a well-conditioned voxel between the f32 program and
+# the f64 reference (1.5e-6 m of fixed-point grid and f32 rounding); a
+# voxel beyond it has a sample whose plane fit is ill-conditioned (the
+# weighted-determinant signs decided by rounding), or is wrong
+SD_OFF_M = 1e-5
+F32_EPS = 2.0 ** -24
+
+
+def sd_tolerance(ref: R.Voxels) -> np.ndarray:
+    """Per voxel: ``SD_OFF_M`` plus the bound on the rounding of a
+    recursive f32 sum of ``n`` adds, u * n * sum|x| (u = 2^-24), over the
+    count, with two adds an insert (K3 merges up to a row per tile that
+    holds the voxel).  A map that keeps integrating one place for
+    thousands of inserts drifts by some 1e-5 m that way."""
+    adds = 2.0 * ref.inserts.cpu().numpy()
+    mean_abs = (ref.abs_sums / ref.counts.to(torch.float64)).cpu().numpy()
+    return SD_OFF_M + F32_EPS * adds * mean_abs
+
+
+def _compact(x: np.ndarray, bits: int) -> np.ndarray:
+    out = np.zeros_like(x)
+    for b in range(bits):
+        out |= ((x >> (3 * b)) & 1) << b
+    return out
+
+
+def read_active(state, block_bits: int):
+    """The active map's occupied voxels from the program's state (the dense
+    block pool, its sorted directory of local block Morton keys, and the
+    origin block): (keys int64 sorted, sd sums f64, weights f64)."""
+    if state is None or int(state.n_blocks) == 0:
+        z = np.zeros(0)
+        return z.astype(np.int64), z, z
+    n = int(state.n_blocks)
+    keys = state.dir_keys[:n].cpu().numpy().astype(np.int64)
+    slots = state.dir_slots[:n].long()
+    sd = state.pool_sd[slots].cpu().numpy()
+    w = state.pool_w[slots].cpu().numpy()
+    org = state.origin_blocks.cpu().numpy().astype(np.int64) * 8
+    off = np.arange(512, dtype=np.int64)
+    occ = w > 0
+    vox = np.stack([
+        (_compact(keys >> a, block_bits)[:, None] * 8 +
+         _compact(off >> a, 3)[None, :] + org[a])[occ] for a in range(3)], 1)
+    k = R.pack_key(torch.from_numpy(vox)).numpy()
+    order = np.argsort(k)
+    return (k[order], sd[occ].astype(np.float64)[order],
+            w[occ].astype(np.float64)[order])
+
+
+def read_leaves(coords, sd, w, sdf_trunc: float):
+    """A finished submap's ``leaf_arrays``: (keys int64 sorted, sd codes
+    int64, weight codes int64)."""
+    k = R.pack_key(torch.from_numpy(np.asarray(coords, np.int64))).numpy()
+    code = np.rint(np.asarray(sd, np.float64) / sdf_trunc * 127.0) + 127
+    order = np.argsort(k)
+    return k[order], code.astype(np.int64)[order], \
+        np.asarray(w, np.int64)[order]
+
+
+def read_ply_vertices(path: str) -> np.ndarray:
+    """Vertices (V, 3) f32 of a binary little-endian PLY whose vertex
+    element leads with float x, y, z."""
+    with open(path, "rb") as fh:
+        n_vert, props = 0, []
+        while True:
+            line = fh.readline().decode("ascii").strip()
+            if line.startswith("element vertex"):
+                n_vert = int(line.split()[2])
+                props = []
+            elif line.startswith("property") and n_vert and \
+                    "list" not in line:
+                props.append(line.split()[1])
+            elif line.startswith("element"):
+                n_prop = len(props)
+            elif line == "end_header":
+                break
+        if any(p != "float" for p in props[:n_prop]):
+            raise ValueError(f"{path}: vertex properties {props}")
+        data = np.frombuffer(fh.read(4 * n_vert * n_prop), "<f4")
+    return data.reshape(n_vert, n_prop)[:, :3].copy()
+
+
+def _join(ka, kb):
+    common, ia, ib = np.intersect1d(ka, kb, assume_unique=True,
+                                    return_indices=True)
+    return ia, ib, len(ka) + len(kb) - 2 * len(common)
+
+
+def _share(bad: np.ndarray) -> float:
+    return float(bad.mean()) if bad.size else 0.0
+
+
+def active_numbers(prog, ref: R.Voxels) -> dict:
+    """``w_mismatch`` and ``sd_off_share`` of the active map."""
+    pk, psum, pw = prog
+    rk = ref.keys.cpu().numpy()
+    ia, ib, missing = _join(pk, rk)
+    counts = ref.counts.cpu().numpy()
+    mean = ref.mean.cpu().numpy()
+    gap = np.abs(psum[ia] / pw[ia] - mean[ib])
+    return {"w_mismatch": missing + int((pw[ia] != counts[ib]).sum()),
+            "sd_off_share": _share(gap > sd_tolerance(ref)[ib])}
+
+
+def leaf_numbers(prog, ref: R.Voxels, sdf_trunc: float) -> dict:
+    """``w_mismatch`` and ``leaf_off_share`` of one finished submap."""
+    pk, pcode, pw = prog
+    code, wcode = (c.cpu().numpy() for c in R.leaf_codes(ref, sdf_trunc))
+    ia, ib, missing = _join(pk, ref.keys.cpu().numpy())
+    return {"w_mismatch": missing + int((pw[ia] != wcode[ib]).sum()),
+            "leaf_off_share": _share(pcode[ia] != code[ib])}
+
+
+def mesh_numbers(prog_vertices: np.ndarray, ref: R.Voxels, sdf_res: float,
+                 sdf_trunc: float) -> dict:
+    """``mesh_off_share`` of a saved mesh against the reference's vertices
+    over the reference voxels' 8-bit values."""
+    from scipy.spatial import cKDTree
+    code, _ = R.leaf_codes(ref, sdf_trunc)
+    rv = R.mesh_vertices(ref.keys, R.decode_sd(code, sdf_trunc),
+                         sdf_res).cpu().numpy()
+    if len(rv) == 0 or len(prog_vertices) == 0:
+        return {"mesh_off_share": 0.0 if len(rv) == len(prog_vertices)
+                else 1.0}
+    d_prog, _ = cKDTree(rv).query(prog_vertices, distance_upper_bound=1.0)
+    d_ref, _ = cKDTree(prog_vertices).query(rv, distance_upper_bound=1.0)
+    off = int((d_prog > MATCH_M).sum()) + int((d_ref > MATCH_M).sum())
+    return {"mesh_off_share": off / (len(rv) + len(prog_vertices))}
+
+
+def merge(numbers: list) -> dict:
+    """One reading per name: counts add, shares take the largest."""
+    out: dict = {}
+    for d in numbers:
+        for k, v in d.items():
+            if k not in out:
+                out[k] = v
+            elif k == "w_mismatch":
+                out[k] += v
+            else:
+                out[k] = max(out[k], v)
+    return out
+
+
+class Reference:
+    """The reference's voxels for groups of inserts, each (template,
+    position) computed once and weighted by how often it was inserted."""
+
+    def __init__(self, traffic, sem: R.Semantics, device, dtype=None):
+        self.traffic, self.sem, self.device = traffic, sem, device
+        self.dtype = torch.float64 if dtype is None else dtype
+        self.touched: dict = {}         # template -> voxels of one insert
+
+    def voxels(self, steps: list) -> R.Voxels:
+        first = self.traffic.position(steps[0])
+        mult: dict = {}
+        for i in steps:
+            k = (i % len(self.traffic.templates),
+                 tuple(self.traffic.position(i).tolist()))
+            mult[k] = mult.get(k, (i, 0))[0], mult.get(k, (i, 0))[1] + 1
+        parts = []
+        for (k, _), (i, m) in mult.items():
+            keys, sd = R.scan_samples(self.traffic.points(i),
+                                      self.traffic.position(i), first,
+                                      self.sem, self.device, self.dtype)
+            v = R.reduce_samples(keys, sd)
+            self.touched[k] = int(v.keys.shape[0])
+            parts.append((v, m))
+        return R.combine(parts)
+
+
+def judge(numbers: dict, limits: dict) -> bool:
+    return all(numbers[k] <= limits[k] for k in numbers)
