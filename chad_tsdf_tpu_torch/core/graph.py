@@ -51,6 +51,7 @@ import torch
 from .. import kernels
 from ..config import MapConfig
 from ..ops import accumulate, conditional
+from ..utils import timing
 from . import carve, integrate
 from .state import ActiveMapState
 
@@ -106,14 +107,19 @@ class InsertGraph:
         bucket's rows; rows from ``n_points`` on count as padding), the
         scanner position and the point count into the input buffers.  A
         copy from host memory is queued without waiting for the stream
-        (pageable memory is staged at once)."""
-        self.points[:points.shape[0]].copy_(torch.as_tensor(points),
-                                             non_blocking=True)
-        self.position.copy_(torch.as_tensor(position), non_blocking=True)
+        (pageable memory is staged at once); ``timing.COUNTS["h2d_bytes"]``
+        counts what comes from the host."""
+        points, position = torch.as_tensor(points), torch.as_tensor(position)
+        self.points[:points.shape[0]].copy_(points, non_blocking=True)
+        self.position.copy_(position, non_blocking=True)
+        sent = sum(t.nbytes for t in (points, position)
+                   if t.device.type == "cpu")
         if isinstance(n_points, torch.Tensor):
             self.n_points.copy_(n_points)
         else:
             self.n_points.fill_(int(n_points))
+            sent += self.n_points.nbytes
+        timing.count("h2d_bytes", sent)
 
     def _step(self, eager: bool) -> None:
         cfg = self.config
@@ -152,9 +158,7 @@ class InsertGraph:
         """The last insert's metrics as device scalars of a copy of the
         metric vector (the next replay overwrites the vector, not them)."""
         vals = self.out.clone()
-        out = {k: vals[i] for i, k in enumerate(self.keys)}
-        out["host_reads"] = 0
-        return out
+        return {k: vals[i] for i, k in enumerate(self.keys)}
 
     def warm(self) -> dict:
         """The insert, eagerly on the graph's buffers (module docstring);
@@ -168,7 +172,7 @@ class InsertGraph:
         cuda = dev.type == "cuda"
         if cuda:
             self._pool = torch.cuda.MemPool()
-            torch.cuda.synchronize(dev)
+            timing.synchronize(dev)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
@@ -179,6 +183,7 @@ class InsertGraph:
                 self._step(eager=False)
         finally:
             integrate.STAGE_HOOK = hook
+        timing.count("graph_captures")
         launched = _launched(before)
         self.launches = {k: v - self.body_launches.get(k, 0)
                          for k, v in launched.items()
@@ -193,3 +198,4 @@ class InsertGraph:
     def replay(self) -> None:
         self.graph.replay()
         self.replays += 1
+        timing.count("graph_replays")

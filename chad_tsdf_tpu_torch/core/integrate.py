@@ -56,9 +56,10 @@ card) the branch is an IF node decided on the device
 the insert's :class:`FallbackTail`, which copies the count of uncovered
 samples into pinned host memory behind an event and runs the fallback
 only when the caller settles it (``TSDFMap`` does at its next insert or
-read).  No backend reads the device on the host during an insert:
-``host_reads`` is 0 under every backend.  :func:`insert_step` settles at
-once.
+read).  No backend reads the device on the host during an insert; the
+settle's wait is the one host wait (``utils/timing.py``
+``COUNTS["host_syncs"]``) that :func:`insert_step`, which settles at
+once, adds.
 
 :func:`insert_steps_scan` inserts one padded cloud ``reps`` times (the
 JAX package's ``lax.scan`` over the insert, what bench.py times): on CUDA
@@ -79,6 +80,7 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
+from ..utils import timing
 
 from ..ops import (accumulate, dda, fused_integrate, morton, normals,
                    normals_cuda, segops, tile_accum)
@@ -460,7 +462,6 @@ def insert_body(state: ActiveMapState, points, n_points, position,
         batch = compute_samples(points, n_points, position,
                                 state.origin_blocks, config)
         state, metrics = update_pool(state, sort_samples(batch), config)
-        metrics["host_reads"] = 0
         return state, metrics, None, None
     if impl == "seg":
         state, metrics = insert_step_sparse_seg(state, points, n_points,
@@ -682,7 +683,7 @@ def insert_step_sparse_seg(state: ActiveMapState, points, n_points,
         touched_overflow=state.touched_overflow + touched_overflow)
     metrics = {"n_valid_samples": n_valid_samples,
                "n_touched_blocks": t_count, "n_new_blocks": n_new,
-               "n_blocks": n_blocks, "host_reads": 0}
+               "n_blocks": n_blocks}
     return new_state, metrics
 
 
@@ -735,11 +736,11 @@ class FallbackTail:
             self.flag, self.copied = tile_ovf, None
 
     def needed(self) -> bool:
-        """Whether the fallback must run: waits for the copy's event, then
-        reads the host word (no tensor method, so the host-read counters
-        of ``scripts/kitti_stream.py`` see no read of the device)."""
-        if self.copied is not None:
-            self.copied.synchronize()
+        """Whether the fallback must run: waits for the copy's event (one
+        host wait in ``timing.COUNTS``, on the CPU too), then reads the
+        host word (no tensor method, so the host-read counters of
+        ``scripts/kitti_stream.py`` see no read of the device)."""
+        timing.wait(self.copied)
         return ctypes.c_int32.from_address(self.flag.data_ptr()).value > 0
 
 
@@ -810,7 +811,6 @@ def _fused_body(state: ActiveMapState, points, n_points, position,
                                            config.sdf_trunc)[3] != 0
         return _masked_grids(s_bkey, s_okey, sd, ovfmask, config)
 
-    metrics["host_reads"] = 0
     return state, metrics, tile_ovf, make_fallback
 
 
@@ -843,7 +843,6 @@ def _tiled_body(state: ActiveMapState, points, n_points, position,
     state, metrics = update_pool_tiled(state, pkeys, psd, pw, tile_ovf,
                                        n_valid, samp_overflow, pt_overflow,
                                        config)
-    metrics["host_reads"] = 0
     return state, metrics, tile_ovf, lambda: _masked_grids(
         s_bkey, s_okey, sd, ovfmask, config)
 
@@ -909,7 +908,6 @@ def sample_tiled_update(state: ActiveMapState, batch: SampleBatch,
         return (torch.where(ovf, batch.bkey, INT32_MAX),
                 torch.where(ovf, batch.payload, 0))
 
-    metrics["host_reads"] = 0
     return state, metrics, tile_ovf, make_fallback
 
 

@@ -60,7 +60,6 @@ from __future__ import annotations
 
 import collections.abc
 import dataclasses
-import time
 import warnings
 import weakref
 
@@ -71,6 +70,8 @@ from ..config import MapConfig
 from ..mesh import device_mc, grid as grid_io, optimize, write_ply
 from ..mesh.mc import TriangleMesh, _vertex_normals, triangulate
 from ..ops import codec, morton
+from ..utils import timing
+from ..utils.timing import span
 from . import carve, dag, graph, integrate, submap as submap_mod
 from .state import (clone_state, create_state, origin_blocks_for_position,
                     reset_state_, resolve_device)
@@ -114,7 +115,7 @@ class LazyMetrics(collections.abc.MutableMapping):
     def __getitem__(self, key):
         v = self._settled()[key]
         if not isinstance(v, (int, float)):
-            v = v.item()
+            v = timing.host_item(v)
             self._data[key] = v
         return v
 
@@ -232,8 +233,23 @@ class TSDFMap:
 
         points: array-like (N, 3) float; position: (3,) float.  Returns the
         per-insert metrics (device values until read).
+
+        The call is the span ``chad.insert`` (``utils/timing.py``; its
+        argument the map's insert index), split into ``.rotate``,
+        ``.dispatch``, ``.load``, ``.replay`` or ``.step``, ``.capture``
+        and ``.overflow_check``.
         """
-        t0 = time.perf_counter()
+        with span("chad.insert", getattr(self, "_n_inserts", 0)) as sp:
+            timing.count("inserts")
+            metrics = self._insert(points, position)
+        if self.config.profile:
+            metrics["wall_ms"] = sp.ms
+            print(f"insert   {sp.ms:8.2f} ms  "
+                  f"samples={metrics['n_valid_samples']} "
+                  f"blocks={metrics['n_blocks']}")
+        return metrics
+
+    def _insert(self, points, position) -> LazyMetrics:
         points = np.ascontiguousarray(np.asarray(points, np.float32))
         if points.ndim != 2 or points.shape[1] != 3:
             raise ValueError("points must be (N, 3)")
@@ -241,15 +257,18 @@ class TSDFMap:
 
         # submap rotation policy (tsdf.cpp:46-61)
         if self.state is None:
-            self._start_submap(position)
+            with span("chad.insert.rotate"):
+                self._start_submap(position)
         elif self._positions and np.linalg.norm(
                 position - self._positions[0]) > self.config.submap_distance:
-            self._finalize_active()
-            self._start_submap(position)
+            with span("chad.insert.rotate"):
+                timing.count("finishes_in_insert", self._finalize_active())
+                self._start_submap(position)
         self._positions.append(position.copy())
         self._active_snapshot = None
         if not self._use_graphs():
             pos_t = torch.from_numpy(position.copy()).to(self.device)
+            timing.count("h2d_bytes", pos_t.nbytes)
 
         cap = self.config.max_points
         buckets = self.config.buckets
@@ -261,26 +280,32 @@ class TSDFMap:
             # the JAX package): the tile kernels need N % 1024 == 0, and a
             # small scan skips most of the max_points pipeline
             bucket = next((b for b in buckets if b >= n), cap)
-            cfg = self._dispatch_config(chunk)
+            with span("chad.insert.dispatch"):
+                cfg = self._dispatch_config(chunk)
             if self._use_graphs():
                 # the graph pads (and packs) on the device
                 metrics_acc.add(self._insert_graph(cfg, bucket, chunk,
                                                    position))
                 continue
-            if n < bucket:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((bucket - n, 3), np.float32)])
-            n_t = torch.full((), n, dtype=torch.int32, device=self.device)
-            if self.config.packed_ingest:
-                # the int16 array is what crosses to the device
-                q = integrate.pack_points(chunk, position, cfg.sdf_res)
-                pts = integrate.unpack_points(
-                    torch.from_numpy(q).to(self.device), pos_t, cfg)
-            else:
-                pts = torch.from_numpy(chunk).to(self.device)
+            with span("chad.insert.load"):
+                if n < bucket:
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((bucket - n, 3), np.float32)])
+                n_t = torch.full((), n, dtype=torch.int32,
+                                 device=self.device)
+                if self.config.packed_ingest:
+                    # the int16 array is what crosses to the device
+                    q = torch.from_numpy(integrate.pack_points(
+                        chunk, position, cfg.sdf_res))
+                    pts = integrate.unpack_points(q.to(self.device), pos_t,
+                                                  cfg)
+                else:
+                    q = pts = torch.from_numpy(chunk).to(self.device)
+                timing.count("h2d_bytes", q.nbytes + n_t.nbytes)
             # reading self.state settles the previous cloud's end first
-            self.state, metrics, tail = integrate.insert_step_deferred(
-                self.state, pts, n_t, pos_t, cfg)
+            with span("chad.insert.step"):
+                self.state, metrics, tail = integrate.insert_step_deferred(
+                    self.state, pts, n_t, pos_t, cfg)
             metrics_acc.add(metrics)
             # the carve gets the map's config, not the dispatched one: it
             # does not depend on the accumulate backend.  It follows the
@@ -295,16 +320,12 @@ class TSDFMap:
                 metrics_acc.add(cmetrics)
         if self.config.profile:
             self._settle()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            metrics_acc["wall_ms"] = (time.perf_counter() - t0) * 1e3
-            print(f"insert   {metrics_acc['wall_ms']:8.2f} ms  "
-                  f"samples={metrics_acc['n_valid_samples']} "
-                  f"blocks={metrics_acc['n_blocks']}")
+            timing.synchronize(self.device)
         self._n_inserts = getattr(self, "_n_inserts", 0) + 1
         # the overflow check reads the device: amortize it over the stream
         if self._n_inserts % 64 == 0 or self.config.profile:
-            self._warn_overflow()
+            with span("chad.insert.overflow_check"):
+                self._warn_overflow(stacklevel=4)   # insert's caller
         self.last_metrics = metrics_acc
         return metrics_acc
 
@@ -320,16 +341,20 @@ class TSDFMap:
         key = (cfg, bucket, cfg.packed_ingest, carving)
         g = self._graphs.get(key)
         if g is not None:
-            g.load(chunk, position, len(chunk))
-            g.replay()
-            return g.metrics()
+            with span("chad.insert.load"):
+                g.load(chunk, position, len(chunk))
+            with span("chad.insert.replay"):
+                g.replay()
+                return g.metrics()
         if self._gstate is None:
             self._gstate = self._state
         g = graph.InsertGraph(self._gstate, cfg, bucket, cfg.packed_ingest,
                               self.config if carving else None)
-        g.load(chunk, position, len(chunk))
-        metrics = g.warm()
-        g.capture()
+        with span("chad.insert.load"):
+            g.load(chunk, position, len(chunk))
+        with span("chad.insert.capture"):
+            metrics = g.warm()
+            g.capture()
         self._graphs.put(key, g)
         return metrics
 
@@ -338,8 +363,10 @@ class TSDFMap:
     _LOSSY_OVERFLOWS = ("point_overflow", "sample_overflow",
                         "block_overflow", "touched_overflow")
 
-    def _warn_overflow(self) -> None:
-        """Warn once per counter kind when dropped-data overflow appears."""
+    def _warn_overflow(self, stacklevel: int = 3) -> None:
+        """Warn once per counter kind when dropped-data overflow appears
+        (``stacklevel``: the frame the warning names, as ``warnings.warn``
+        counts)."""
         if self.state is None:
             return
         warned = getattr(self, "_overflow_warned", set())
@@ -350,13 +377,13 @@ class TSDFMap:
         for name in self._LOSSY_OVERFLOWS:
             if name in warned:
                 continue
-            v = int(getattr(self.state, name))
+            v = timing.host_item(getattr(self.state, name))
             if v > 0:
                 warnings.warn(
                     f"TSDFMap: {name} = {v} — samples were dropped and "
                     f"counted; the map is degraded in those regions. "
                     f"Raise MapConfig.{knob[name]} to avoid this.",
-                    stacklevel=3)
+                    stacklevel=stacklevel)
                 warned.add(name)
         self._overflow_warned = warned
         self._checked_at_insert = getattr(self, "_n_inserts", 0)
@@ -426,18 +453,23 @@ class TSDFMap:
             state, self.config, self._positions,
             anchor=self._anchor_from(self._positions))
 
-    def _finalize_active(self) -> None:
+    def _finalize_active(self) -> int:
         """Deferred rotation: stash the rotated-out active map; counter
         read-back, compaction, transfer and DAG build all happen at
-        :meth:`_drain_pending`."""
+        :meth:`_drain_pending`, unless the stubs pile up past their bound.
+        Returns the number of submaps finished here."""
+        timing.count("rotations")
         self._pending.append(self._stash_active())
         # bound the device memory the stubs hold (a whole pool each), by
         # count and by bytes; the oldest has waited longest
+        n = 0
         while (len(self._pending) > self.config.max_pending_finalize or
                sum(p.pinned_bytes for p in self._pending) >
                _MAX_PENDING_BYTES):
             self.submaps.append(
                 self._pending.pop(0).finish(self.levels, self.config))
+            n += 1
+        return n
 
     def _drain_pending(self) -> None:
         """Materialize all pending (rotated-out) submaps, in order.  All
@@ -450,7 +482,8 @@ class TSDFMap:
                 self._pending.pop(0).finish(self.levels, self.config))
 
     def _active_nonempty(self) -> bool:
-        return self.state is not None and int(self.state.n_blocks) > 0
+        return self.state is not None and \
+            timing.host_item(self.state.n_blocks) > 0
 
     def finalize_active(self) -> None:
         """Finalize the current active map into a submap immediately (the
@@ -561,17 +594,16 @@ class TSDFMap:
         submaps = self._all_submaps()
         if self.config.mesh_first_submap_only and submaps:
             submaps = submaps[:1]   # reference parity (tsdf.cpp:85)
-        t0 = time.perf_counter()
-        codes, sd = self.voxel_samples(submaps)
-        t1 = time.perf_counter()
-        if self._mesh_impl() == "device":
-            v, f = device_mc.triangulate_device(codes, sd, self.config.sdf_res,
-                                                device=self.device)
-        else:
-            v, f = triangulate(codes, sd, self.config.sdf_res)
-        t2 = time.perf_counter()
-        mesh = TriangleMesh(v, f, _vertex_normals(v, f))
-        t3 = time.perf_counter()
+        with span("chad.save.voxel_samples") as s_vs:
+            codes, sd = self.voxel_samples(submaps)
+        with span("chad.save.mc") as s_mc:
+            if self._mesh_impl() == "device":
+                v, f = device_mc.triangulate_device(
+                    codes, sd, self.config.sdf_res, device=self.device)
+            else:
+                v, f = triangulate(codes, sd, self.config.sdf_res)
+        with span("chad.save.normals") as s_n:
+            mesh = TriangleMesh(v, f, _vertex_normals(v, f))
         if optimize_iterations > 0:
             if optimize_method == "planar":
                 mesh = optimize.optimize_planar_faces(mesh,
@@ -580,8 +612,8 @@ class TSDFMap:
                 mesh = optimize.taubin_smooth(mesh, optimize_iterations)
             else:
                 raise ValueError(f"bad optimize_method {optimize_method!r}")
-        split = {"voxel_samples_ms": (t1 - t0) * 1e3,
-                 "mc_ms": (t2 - t1) * 1e3, "normals_ms": (t3 - t2) * 1e3}
+        split = {"voxel_samples_ms": s_vs.ms, "mc_ms": s_mc.ms,
+                 "normals_ms": s_n.ms}
         return mesh, split, (codes, sd)
 
     def extract_mesh(self, optimize_iterations: int = 0,
@@ -603,28 +635,32 @@ class TSDFMap:
         when ``config.save_grid`` is set (lvr2.cpp:290 writes it on every
         save).  ``last_metrics`` gets ``sub_fin_ms``, ``mesh_ms`` and its
         split (``voxel_samples_ms``, ``mc_ms``, ``normals_ms``), ``grid_ms``
-        with the dump, and ``ply_ms``."""
-        t0 = time.perf_counter()
-        self._all_submaps()                # finalizes the active snapshot
-        t_fin = time.perf_counter() - t0
-        mesh, split, samples = self._mesh_timed()
-        t_mesh = time.perf_counter() - t0 - t_fin
-        if self.config.profile:
-            print(f"sub fin  {t_fin * 1e3:8.2f} ms")
-            print(f"mesh     {t_mesh * 1e3:8.2f} ms  "
-                  f"({mesh.n_vertices} verts, {mesh.n_faces} faces)")
-        self.last_metrics["sub_fin_ms"] = t_fin * 1e3
-        self.last_metrics["mesh_ms"] = t_mesh * 1e3
-        self.last_metrics.update(split)
-        if self.config.save_grid:
-            t0 = time.perf_counter()
-            if self.config.mesh_first_submap_only:   # the dump has them all
-                samples = self.voxel_samples()
-            grid_io.write_grid("hashgrid.grid", *samples, self.config.sdf_res)
-            self.last_metrics["grid_ms"] = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        write_ply(filename, mesh)
-        self.last_metrics["ply_ms"] = (time.perf_counter() - t0) * 1e3
+        with the dump, and ``ply_ms``: the lengths of the span ``chad.save``'s
+        children ``.snapshot`` (the finalized submaps and the active
+        snapshot), ``.voxel_samples``, ``.mc``, ``.normals``, ``.grid``
+        and ``.ply`` (``mesh_ms`` is the sum of the middle three)."""
+        with span("chad.save"):
+            with span("chad.save.snapshot") as s_fin:
+                self._all_submaps()        # finalizes the active snapshot
+            mesh, split, samples = self._mesh_timed()
+            mesh_ms = sum(split.values())
+            if self.config.profile:
+                print(f"sub fin  {s_fin.ms:8.2f} ms")
+                print(f"mesh     {mesh_ms:8.2f} ms  "
+                      f"({mesh.n_vertices} verts, {mesh.n_faces} faces)")
+            self.last_metrics["sub_fin_ms"] = s_fin.ms
+            self.last_metrics["mesh_ms"] = mesh_ms
+            self.last_metrics.update(split)
+            if self.config.save_grid:
+                with span("chad.save.grid") as s:
+                    if self.config.mesh_first_submap_only:  # the dump has all
+                        samples = self.voxel_samples()
+                    grid_io.write_grid("hashgrid.grid", *samples,
+                                       self.config.sdf_res)
+                self.last_metrics["grid_ms"] = s.ms
+            with span("chad.save.ply") as s:
+                write_ply(filename, mesh)
+            self.last_metrics["ply_ms"] = s.ms
 
     def save_grid(self, filename: str) -> None:
         """The reference's binary ``.grid`` dump of every submap's samples
@@ -784,12 +820,13 @@ class TSDFMap:
         s = self.levels.stats()
         s["n_submaps"] = len(self.submaps)
         if self.state is not None:
-            s["active_blocks"] = int(self.state.n_blocks)
+            st, read = self.state, timing.host_item
+            s["active_blocks"] = read(st.n_blocks)
             s["overflow"] = {
-                "points": int(self.state.point_overflow),
-                "samples": int(self.state.sample_overflow),
-                "blocks": int(self.state.block_overflow),
-                "touched": int(self.state.touched_overflow),
-                "tile": int(self.state.tile_overflow),
+                "points": read(st.point_overflow),
+                "samples": read(st.sample_overflow),
+                "blocks": read(st.block_overflow),
+                "touched": read(st.touched_overflow),
+                "tile": read(st.tile_overflow),
             }
         return s

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
+from ..utils.timing import host_item
 
 INT32_MAX = 2**31 - 1
 
@@ -144,12 +145,9 @@ def state_from_numpy(d, device="cuda") -> ActiveMapState:
 def warn_on_overflow(state: ActiveMapState) -> dict:
     """Surface non-zero lossy overflow counters as a RuntimeWarning (a host
     read of four counters; called at finalize, a sync point anyway)."""
-    counts = {
-        "point_overflow": int(state.point_overflow),
-        "sample_overflow": int(state.sample_overflow),
-        "block_overflow": int(state.block_overflow),
-        "touched_overflow": int(state.touched_overflow),
-    }
+    counts = {name: host_item(getattr(state, name))
+              for name in ("point_overflow", "sample_overflow",
+                           "block_overflow", "touched_overflow")}
     hit = {k: v for k, v in counts.items() if v > 0}
     if hit:
         warnings.warn(

@@ -19,6 +19,12 @@ read-back, the compaction, the device->host copy and the DAG build happen
 at the map's next drain.  The weight clamp uses min (the intent), not the
 reference's always-255 ``std::max`` (submap.hpp:92-93).
 
+A finish is the span ``chad.finalize`` (``utils/timing.py``), split into
+``.counters`` (the counter read-back), ``.compact``, ``.d2h`` (the copy
+and its wait), ``.unpack`` (:func:`_unpack_cluster_buf`) and ``.dag``
+(:func:`build_submap`); a drain's compactions run before its finishes,
+under whatever span is open then.
+
 A Morton-sharded active map (``parallel/``) finalizes through
 :func:`start_finalize_sharded` / :func:`finish_finalize_sharded`: each
 shard's clusters are compacted as above, and a block that several shards
@@ -36,6 +42,8 @@ import torch
 
 from ..config import MapConfig
 from ..ops import codec, morton
+from ..utils import timing
+from ..utils.timing import span
 from .dag import MAX_DEPTH, NodeLevels
 from .state import INT32_MAX, ActiveMapState, warn_on_overflow
 
@@ -159,19 +167,23 @@ def extract_clusters(state: ActiveMapState, config: MapConfig):
     """Device quantization + compaction + host unpack: active map ->
     sorted unique (cluster codes u64, tsdf words u64, weight words u64,
     n_voxels).  Two scalar reads and one bulk transfer."""
-    n_blocks = int(state.n_blocks)
     z = np.zeros(0, np.uint64)
-    if n_blocks == 0:
-        return z, z.copy(), z.copy(), 0
-    n_pad = max(1, 1 << (n_blocks - 1).bit_length())
-    count = int(_count_nonempty_clusters(state, n_pad))
-    if count == 0:
-        return z, z.copy(), z.copy(), 0
+    with span("chad.finalize.counters"):
+        n_blocks = timing.host_item(state.n_blocks)
+        if n_blocks == 0:
+            return z, z.copy(), z.copy(), 0
+        n_pad = max(1, 1 << (n_blocks - 1).bit_length())
+        count = timing.host_item(_count_nonempty_clusters(state, n_pad))
+        if count == 0:
+            return z, z.copy(), z.copy(), 0
     cap = cap_bucket(count)
-    buf = _extract_clusters_compact(state, n_pad, cap, config.sdf_trunc)
-    buf = buf.cpu().numpy().astype(np.uint32)
-    return _unpack_cluster_buf(buf, n_pad, cap, count,
-                               state.origin_blocks.cpu().numpy(), config)
+    with span("chad.finalize.compact"):
+        buf = _extract_clusters_compact(state, n_pad, cap, config.sdf_trunc)
+    with span("chad.finalize.d2h"):
+        buf = timing.to_host(buf).numpy().astype(np.uint32)
+        origin = timing.to_host(state.origin_blocks).numpy()
+    with span("chad.finalize.unpack"):
+        return _unpack_cluster_buf(buf, n_pad, cap, count, origin, config)
 
 
 def build_submap(levels: NodeLevels, codes, words_t, words_w, positions,
@@ -207,9 +219,14 @@ def finalize(state: ActiveMapState, levels: NodeLevels, config: MapConfig,
              positions: list) -> Submap:
     """Finalize the active map into a Submap, hash-consing into ``levels``
     (synchronous: reads the counters and the clusters back now)."""
-    warn_on_overflow(state)
-    codes, words_t, words_w, n_vox = extract_clusters(state, config)
-    return build_submap(levels, codes, words_t, words_w, positions, n_vox)
+    with span("chad.finalize"):
+        timing.count("finishes")
+        with span("chad.finalize.counters"):
+            warn_on_overflow(state)
+        codes, words_t, words_w, n_vox = extract_clusters(state, config)
+        with span("chad.finalize.dag"):
+            return build_submap(levels, codes, words_t, words_w, positions,
+                                n_vox)
 
 
 # ---------------------------------------------------------------------------
@@ -284,9 +301,11 @@ class PendingSubmap:
         if self.raw_state is None:
             return
         state, config = self.raw_state, self.config
-        vals = _rotation_counters(state, config.block_capacity).cpu().numpy()
-        n_blocks, count = int(vals[0]), int(vals[1])
-        _warn_lossy(vals[2:6])
+        with span("chad.finalize.counters"):
+            vals = timing.to_host(_rotation_counters(
+                state, config.block_capacity)).numpy()
+            n_blocks, count = int(vals[0]), int(vals[1])
+            _warn_lossy(vals[2:6])
         self.origin_blocks = vals[6:9].astype(np.int32)
         if n_blocks == 0 or count == 0:
             self.buf, self.count = None, 0
@@ -294,8 +313,9 @@ class PendingSubmap:
             self.n_pad = max(1, 1 << (n_blocks - 1).bit_length())
             self.cap = cap_bucket(count)
             self.count = count
-            self.buf = _extract_clusters_compact(state, self.n_pad,
-                                                 self.cap, config.sdf_trunc)
+            with span("chad.finalize.compact"):
+                self.buf = _extract_clusters_compact(
+                    state, self.n_pad, self.cap, config.sdf_trunc)
         self.raw_state = None          # release the pool
 
     @property
@@ -312,13 +332,14 @@ class PendingSubmap:
         drained (its map is going away): reads the four lossy counters of
         the stashed state, nothing else."""
         if self.raw_state is not None:
-            _warn_lossy(torch.stack([getattr(self.raw_state, k)
-                                     for k in _LOSSY]).tolist())
+            _warn_lossy(timing.to_host(torch.stack(
+                [getattr(self.raw_state, k) for k in _LOSSY])).tolist())
 
     def start_copies(self) -> None:
         self._materialize_device()
         if self.buf is None or self.host is not None:
             return
+        timing.count("d2h_bytes", self.buf.nbytes)
         if self.buf.device.type != "cuda":
             self.host = self.buf
             return
@@ -336,14 +357,16 @@ class PendingSubmap:
 
     def host_buf(self) -> np.ndarray:
         """The compacted buffer as numpy uint32, once its copy is done."""
-        self.start_copies()
-        if self.copy_done is not None:
-            self.copy_done.synchronize()
-        return self.host.numpy().astype(np.uint32)
+        with span("chad.finalize.d2h"):
+            self.start_copies()
+            timing.wait(self.copy_done)
+            return self.host.numpy().astype(np.uint32)
 
     def finish(self, levels: NodeLevels, config: MapConfig) -> Submap:
-        self._materialize_device()
-        return finish_finalize(self, levels, config)
+        with span("chad.finalize"):
+            timing.count("finishes")
+            self._materialize_device()
+            return finish_finalize(self, levels, config)
 
 
 def start_finalize(state: ActiveMapState, config: MapConfig,
@@ -361,14 +384,18 @@ def finish_finalize(pending: PendingSubmap, levels: NodeLevels,
     """Materialize a PendingSubmap into the DAG (host)."""
     if pending.buf is None:
         z = np.zeros(0, np.uint64)
-        sm = build_submap(levels, z, z.copy(), z.copy(), pending.positions,
-                          0)
+        with span("chad.finalize.dag"):
+            sm = build_submap(levels, z, z.copy(), z.copy(),
+                              pending.positions, 0)
     else:
-        codes, words_t, words_w, n_vox = _unpack_cluster_buf(
-            pending.host_buf(), pending.n_pad, pending.cap, pending.count,
-            pending.origin_blocks, config)
-        sm = build_submap(levels, codes, words_t, words_w,
-                          pending.positions, n_vox)
+        host = pending.host_buf()
+        with span("chad.finalize.unpack"):
+            codes, words_t, words_w, n_vox = _unpack_cluster_buf(
+                host, pending.n_pad, pending.cap, pending.count,
+                pending.origin_blocks, config)
+        with span("chad.finalize.dag"):
+            sm = build_submap(levels, codes, words_t, words_w,
+                              pending.positions, n_vox)
         pending.buf = None
     sm.anchor = pending.anchor
     return sm

@@ -43,6 +43,7 @@ import torch
 
 from ..core.state import resolve_device
 from ..ops import morton
+from ..utils import timing
 from .mc import TriangleMesh, _vertex_normals
 from .tables import CORNERS, EDGES, TRI_TABLE
 
@@ -184,6 +185,7 @@ def _mesh_blocks(sd_grid, case, active, nb, bcoords, iso: float,
     dev = sd_grid.device
     i64 = dict(dtype=torch.int64, device=dev)
     # ---- compact the active cells, in cell-code order ----
+    timing.count("host_syncs")           # nonzero waits for its count
     sid = torch.nonzero(active).squeeze(1)
     cell_overflow = max(sid.shape[0] - cell_cap, 0)
     sid = sid[:cell_cap]
@@ -225,6 +227,7 @@ def _mesh_blocks(sd_grid, case, active, nb, bcoords, iso: float,
 
     # ---- the live triangles, cell-major as the host's soup ----
     te = torch.from_numpy(_TRI15_T).to(dev)[:, c_case]   # (15, C) edge ids
+    timing.count("host_syncs")
     tid = torch.nonzero((te[0::3] >= 0).T.reshape(-1)).squeeze(1)
     tri_overflow = max(tid.shape[0] - tri_cap, 0)
     tid = tid[:tri_cap]
@@ -270,7 +273,7 @@ def triangulate_device(sample_codes: np.ndarray, sample_sd: np.ndarray,
     sd_grid, case, active, counts = _classify(
         torch.from_numpy(flat).to(dev), torch.from_numpy(sd).to(dev), nb,
         float(iso))
-    n_active, n_tris = (int(x) for x in counts.cpu())
+    n_active, n_tris = (int(x) for x in timing.to_host(counts))
     if n_tris == 0:
         return empty
     if cell_cap is None:
@@ -287,9 +290,9 @@ def triangulate_device(sample_codes: np.ndarray, sample_sd: np.ndarray,
             cell_cap *= 2
         if t_ovf > 0:
             tri_cap *= 2
-    v = int(n_verts)
-    vertices = verts[:v].cpu().numpy() * np.float32(sdf_res)
-    faces = faces.cpu().numpy().astype(np.int32)
+    v = timing.host_item(n_verts)
+    vertices = timing.to_host(verts[:v]).numpy() * np.float32(sdf_res)
+    faces = timing.to_host(faces).numpy().astype(np.int32)
     # drop degenerate triangles (two corners welded to the same vertex)
     ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) &
           (faces[:, 0] != faces[:, 2]))

@@ -256,13 +256,11 @@ def global_shard_array(host_value: np.ndarray, mesh: ShardMesh) -> list:
 
 def _psum_metrics(mesh: ShardMesh, per_shard: list) -> dict:
     """Sum per-shard dicts of int32 device scalars over the mesh in one
-    reduction; ``host_reads`` is 0 on every path."""
-    names = [k for k in per_shard[0] if k != "host_reads"]
+    reduction."""
+    names = list(per_shard[0])
     tot = mesh.psum([torch.stack([d[k].to(torch.int32) for k in names])
                      for d in per_shard])
-    out = {k: tot[i] for i, k in enumerate(names)}
-    out["host_reads"] = 0
-    return out
+    return {k: tot[i] for i, k in enumerate(names)}
 
 
 def make_sharded_insert(config: MapConfig, mesh: ShardMesh,

@@ -1,1 +1,2 @@
-from .timing import JsonMetricsSink, StageTimer, profile_insert, trace  # noqa: F401
+from .timing import (COUNTS, JsonMetricsSink, StageTimer, count,  # noqa: F401
+                     counts, profile_insert, profiled, span, trace)

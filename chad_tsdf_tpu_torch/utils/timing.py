@@ -11,6 +11,13 @@ host clock on the CPU, and :func:`profile_insert` runs the sort-based
 pipeline stage by stage in the JAX module's layout.  :func:`trace` wraps
 ``torch.profiler`` and writes a Chrome trace; :class:`JsonMetricsSink`
 writes one JSON object per insert.
+
+The program itself is instrumented with :class:`span` (named host
+intervals at each layer boundary: ``chad.insert``, ``chad.finalize``,
+``chad.save`` and their stages), which become ranges in a running
+profiler's timeline and cost two clock reads otherwise, and
+with the process-wide counters :data:`COUNTS` (:func:`count`,
+:func:`counts`).
 """
 
 from __future__ import annotations
@@ -22,6 +29,144 @@ import tempfile
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+# Process-wide event counters (plain ints, as ``kernels.LAUNCHES``):
+# ``inserts`` (TSDFMap.insert calls), ``graph_replays``, ``graph_captures``,
+# ``rotations`` (submaps rotated out), ``finishes`` (submaps built into the
+# DAG, the active snapshot of ``save`` included), ``finishes_in_insert``
+# (those an insert had to run because too many rotations were pending),
+# ``h2d_bytes`` (the clouds, positions and point counts sent to the
+# device), ``d2h_bytes`` (counters, compacted clusters and meshes read
+# back) and ``host_syncs`` (every place the host waits for the device: a
+# tensor read, an event or a stream synchronisation; counted at the same
+# sites on a CPU map).
+COUNTS = dict.fromkeys(("inserts", "graph_replays", "graph_captures",
+                        "rotations", "finishes", "finishes_in_insert",
+                        "h2d_bytes", "d2h_bytes", "host_syncs"), 0)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of :data:`COUNTS`."""
+    COUNTS[name] += n
+
+
+def counts() -> dict:
+    """A copy of :data:`COUNTS`."""
+    return dict(COUNTS)
+
+
+def host_item(t):
+    """``t.item()``, counted as one host wait reading ``t``'s bytes."""
+    COUNTS["host_syncs"] += 1
+    COUNTS["d2h_bytes"] += t.nbytes
+    return t.item()
+
+
+def to_host(t):
+    """``t.cpu()``, counted as one host wait reading ``t``'s bytes."""
+    COUNTS["host_syncs"] += 1
+    COUNTS["d2h_bytes"] += t.nbytes
+    return t.cpu()
+
+
+def wait(event) -> None:
+    """``event.synchronize()`` (None: nothing to wait for on the CPU),
+    counted as one host wait."""
+    COUNTS["host_syncs"] += 1
+    if event is not None:
+        event.synchronize()
+
+
+def synchronize(device) -> None:
+    """Wait for everything queued on ``device`` (nothing to wait for on
+    the CPU), counted as one host wait."""
+    COUNTS["host_syncs"] += 1
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _Profiled:
+    """The spans closed while a profiler ran: (name, start s, end s) on
+    the host clock, and :data:`COUNTS` at the first span's start and at
+    the last span's end.  Emptied when a span opens under a profiler after
+    one opened without."""
+
+    def __init__(self):
+        self.on = False
+        self.spans: list = []
+        self.counts0: dict = {}
+        self.counts1: dict = {}
+
+
+_PROFILED = _Profiled()
+
+
+def profiled() -> dict | None:
+    """The spans of the last profiled stretch and the counters' growth
+    over it: ``{"spans": [(name, start s, end s), ...], "counts": {name:
+    delta}}``, or None when no span has closed under a profiler."""
+    p = _PROFILED
+    if not p.spans:
+        return None
+    return {"spans": list(p.spans),
+            "counts": {k: p.counts1[k] - p.counts0[k] for k in p.counts0}}
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+class span:
+    """A named host interval: ``with span("chad.insert", args=i) as s:``,
+    then ``s.ms`` is its length in milliseconds (the host clock).  Spans
+    nest; a span's parent is the span open around it.
+
+    While a ``torch.profiler`` runs (and no CUDA graph is being
+    captured), the block is also a profiler range named ``name`` with
+    ``str(args)`` as its input, on the clock the profiler traces the
+    device on, so the device's idle time can be put down to the span the
+    host was in; the span is then kept for :func:`profiled`.  Otherwise
+    the profiler is not touched.  The range is an operator's
+    (``_RecordFunctionFast``), not a ``record_function`` user annotation:
+    the profiler mirrors each user annotation onto the device's timeline
+    as one interval over the kernels launched inside it, which would read
+    as device work wherever the device's busy time is a union of its
+    intervals."""
+
+    __slots__ = ("name", "args", "ms", "_t0", "_range")
+
+    def __init__(self, name: str, args=None):
+        self.name = name
+        self.args = args
+        self.ms = None
+        self._range = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            if not _capturing():
+                p = _PROFILED
+                if not p.on:
+                    p.on, p.spans, p.counts0 = True, [], counts()
+                fast = torch._C._profiler._RecordFunctionFast
+                self._range = fast(self.name) if self.args is None else \
+                    fast(self.name, [str(self.args)])
+                self._range.__enter__()
+        else:
+            _PROFILED.on = False
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        self.ms = (t1 - self._t0) * 1e3
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+            _PROFILED.spans.append((self.name, self._t0, t1))
+            _PROFILED.counts1 = counts()
+        return False
 
 
 class StageTimer:

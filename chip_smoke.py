@@ -169,7 +169,9 @@ runs, failing with a non-zero exit on the first error:
    the graph's state and its reset in place, against an eager insert and
    a capture on new tensors).
 
-The fused and tile inserts must report ``host_reads`` 0, and the fused
+The fused, tile and pallas inserts must not wait for the card
+(``utils/timing.py`` ``COUNTS["host_syncs"]`` does not grow over a
+replay, nor over an eager insert whose fallback is deferred), and the fused
 inserts run once more under ``torch.cuda.set_sync_debug_mode("warn")``:
 no synchronising call may come from ``core/integrate.py``.
 
@@ -1164,9 +1166,7 @@ def run_stream(cfg):
                     len(m._pending) == rotations and not m.submaps,
                     f"{name}: {m.n_submaps} submaps, {len(m._pending)} "
                     f"pending; the policy gives {rotations} deferred")
-            host_reads = {int(x["host_reads"]) for x in metrics}
-            require(reads == {} and host_reads == {0},
-                    f"{name} inserts read the host: {reads}, {host_reads}")
+            require(reads == {}, f"{name} inserts read the host: {reads}")
             if name == "seg":
                 # scan 0 ran eagerly and captured the map's graph; scans
                 # 1.. replayed it, each launching K2 and nothing else
@@ -1220,8 +1220,8 @@ def run_stream(cfg):
                     f"scans/s median of "
                     f"{[round(r, 2) for r in rates[name]]}, "
                     f"{n_pts / dt:.0f} points/s in the last round; host "
-                    f"reads/insert {sorted(host_reads)} (counted calls "
-                    f"{reads}); launches in 12 inserts {launches}")
+                    f"reads (counted calls) {reads}; launches in 12 "
+                    f"inserts {launches}")
             del m
         torch.cuda.empty_cache()
     for impl in ("sample_tile", "pallas", "fused"):
@@ -1939,8 +1939,7 @@ def run_sharded(tmp):
         require(torch.equal(getattr(s1.state_stack[0], f),
                             getattr(ref.state, f)),
                 f"N = 1: {f} not bit-equal to TSDFMap")
-    require(reads == {} and met["host_reads"] == 0,
-            f"the N = 1 insert read the host: {reads}")
+    require(reads == {}, f"the N = 1 insert read the host: {reads}")
     log(f"phase 13 N = 1 (2^20-point r = 5 m sphere): pools, directory "
         f"and slot order bit-equal to TSDFMap; host reads {reads}")
 
@@ -1992,8 +1991,7 @@ def run_sharded(tmp):
                                        "dense insert")
     require(reads == {}, f"the N = 4 dense insert read the host: {reads}")
     met4 = {k: met4[k] for k in ("route_overflow", "route_sent",
-                                 "n_valid_samples", "n_blocks",
-                                 "host_reads")}
+                                 "n_valid_samples", "n_blocks")}
     require(met4["route_overflow"] == 0 and met4["route_sent"] > 0,
             f"N = 4 dense: {met4}")
     held = hold_sharded_kernels(calls, cfg,
@@ -2067,8 +2065,7 @@ def run_sharded(tmp):
                                                             mesh4)
             stream_launches, sh_metrics = dict(kernels.LAUNCHES), metrics
             n_read, n_drained = check_reads(reads, drained, "N = 4 stream")
-            require({int(x["host_reads"]) for x in metrics} == {0} and
-                    max(int(x["route_overflow"]) for x in metrics) == 0,
+            require(max(int(x["route_overflow"]) for x in metrics) == 0,
                     "N = 4 stream metrics")
             for k in ("estimate_normals", "merge_partials"):
                 require(stream_launches[k] > 0,
@@ -2544,6 +2541,7 @@ def run_map_graph():
     from chad_tsdf_tpu_torch.core.state import clone_state, reset_state_
     from chad_tsdf_tpu_torch.ops import accumulate
     from chad_tsdf_tpu_torch.scripts import kitti_stream as ks
+    from chad_tsdf_tpu_torch.utils import timing
     t_phase = time.perf_counter()
     mem = {"before": reserved_mb()}
     per_insert = {}
@@ -2573,13 +2571,18 @@ def run_map_graph():
         gm, em = graph_pair(cfg)
         reads_all = {}
         for i, (pts, pos) in enumerate(clouds):
+            c0 = timing.counts()
             with ks.count_host_reads() as reads:
                 mg = gm.insert(pts, pos)
+            c1 = timing.counts()
             reads_all.update(reads)
             me = em.insert(pts, pos)
             same_insert(gm, em, mg, me, f"phase 15 {name}, insert {i}")
-            require(mg["host_reads"] == 0 and not reads,
-                    f"{name}: insert {i} read the host: {reads}")
+            # a capture waits for the card once; a replay never does
+            require(c1["host_syncs"] - c0["host_syncs"] ==
+                    c1["graph_captures"] - c0["graph_captures"] and
+                    not reads, f"{name}: insert {i} read the host: "
+                    f"{reads}, {c1['host_syncs'] - c0['host_syncs']} waits")
         require(not accumulate.overflowed("cuda"),
                 f"{name}: K5 chunk list overflowed")
         graphs = gm._graphs.values()
@@ -2693,6 +2696,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from chad_tsdf_tpu_torch import MapConfig, TSDFMap, kernels
     from chad_tsdf_tpu_torch.mesh import device_mc, read_ply
+    from chad_tsdf_tpu_torch.utils import timing
     require(not jax_package_modules(),
             f"the port imported {jax_package_modules()}")
 
@@ -2729,11 +2733,13 @@ def main() -> int:
     met = m.insert(dense, origin0)
     torch.cuda.synchronize()
     insert_ms = []
+    syncs0 = timing.COUNTS["host_syncs"]
     for _ in range(5):
         t0 = time.perf_counter()
         met = m.insert(dense, origin0)
         torch.cuda.synchronize()
         insert_ms.append((time.perf_counter() - t0) * 1e3)
+    waits = timing.COUNTS["host_syncs"] - syncs0
     dense_launches = dict(kernels.LAUNCHES)
     # the first insert ran eagerly (its fallback unconditionally: K4 and
     # K5 add nothing there) and captured the map's graph; the other five
@@ -2771,7 +2777,8 @@ def main() -> int:
     tile_ovf = int(m.state.tile_overflow)
     require(tile_ovf == 0, f"dense sphere tile_overflow {tile_ovf}")
     require(n_blocks > 0, "no blocks allocated")
-    require(met["host_reads"] == 0, "the fused insert read the host")
+    require(waits == 0, f"the fused replays waited for the card {waits} "
+                        f"times")
     msync = TSDFMap(0.05, 0.1, device="cuda")
     msync.insert(dense, origin0)
     mine, syncs = integrate_syncs(lambda: [msync.insert(dense, origin0)
@@ -2793,7 +2800,7 @@ def main() -> int:
         f"{N_DENSE / ins * 1e3:.0f} points/s; eager insert "
         f"{statistics.median(eager_ms):.3f} ms median of "
         f"{[round(x, 3) for x in eager_ms]}; n_blocks {n_blocks}, "
-        f"tile_overflow {tile_ovf}, host reads/insert {met['host_reads']}, "
+        f"tile_overflow {tile_ovf}, host waits in 5 inserts {waits}, "
         f"n_valid_samples {met['n_valid_samples']}; launches (eager first "
         f"insert + capture) {dense_launches}")
     log(f"phase 3 sync debug mode over 3 fused inserts: synchronising "
@@ -2816,13 +2823,15 @@ def main() -> int:
         mb.insert(dense, origin0)
         torch.cuda.synchronize()
         impl_ms = []
+        syncs0 = timing.COUNTS["host_syncs"]
         for _ in range(5):
             t0 = time.perf_counter()
-            mmet = mb.insert(dense, origin0)
+            mb.insert(dense, origin0)
             torch.cuda.synchronize()
             impl_ms.append((time.perf_counter() - t0) * 1e3)
         impl_launches = dict(kernels.LAUNCHES)
-        require(mmet["host_reads"] == 0, f"the {impl} insert read the host")
+        require(timing.COUNTS["host_syncs"] == syncs0,
+                f"the {impl} replays waited for the card")
         needed = (("accumulate_segments",) if impl == "pallas" else
                   ("tile_partials", "merge_partials"))
         for name in needed:
@@ -2855,13 +2864,15 @@ def main() -> int:
     kernels.reset_launches()
     accumulate.accumulate_xla = no_scatter
     try:
-        smet = ms_.insert(sparse, origin0)
+        syncs0 = timing.COUNTS["host_syncs"]
+        ms_.insert(sparse, origin0)
         require(ms_._deferred is not None, "the fused insert settled itself")
+        require(timing.COUNTS["host_syncs"] == syncs0,
+                "the sparse fused insert waited for the card")
         ms_.state                  # settles: the fallback runs here
     finally:
         accumulate.accumulate_xla = scatter
     sparse_launches = dict(kernels.LAUNCHES)
-    require(smet["host_reads"] == 0, "the sparse fused insert read the host")
     for name in ("tile_partials", "accumulate_segments"):
         require(sparse_launches[name] > 0,
                 f"{name} launched 0 times on the sparse insert")

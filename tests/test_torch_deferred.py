@@ -22,6 +22,7 @@ from chad_tsdf_tpu_torch.core import integrate
 from chad_tsdf_tpu_torch.core.state import (create_state,
                                             origin_blocks_for_position)
 from chad_tsdf_tpu_torch.scripts.kitti_stream import count_host_reads
+from chad_tsdf_tpu_torch.utils import timing
 
 FIELDS = ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
           "point_overflow", "sample_overflow", "block_overflow",
@@ -85,12 +86,16 @@ def test_deferred_insert_reads_nothing(impl):
     """Two inserts, the second settling the first (its fallback runs):
     no call reads a tensor on the host."""
     m = TSDFMap(config=_cfg(impl), device="cpu")
+    syncs = timing.COUNTS["host_syncs"]
     with count_host_reads() as reads:
         m.insert(*SCANS[0])
         met = m.insert(*SCANS[1])
     assert reads == {}
+    # one host wait: the second insert settled the first
+    assert timing.COUNTS["host_syncs"] - syncs == 1
     assert m._deferred is not None            # the fallback waits
-    assert met.raw("host_reads") == 0 and m._deferred is None
+    met.raw("n_blocks")                       # a read settles it: one wait
+    assert timing.COUNTS["host_syncs"] - syncs == 2 and m._deferred is None
     assert int(m.state.tile_overflow) > 0     # and it was needed
 
 

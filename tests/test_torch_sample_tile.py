@@ -42,6 +42,7 @@ from chad_tsdf_tpu_torch.core.state import (create_state,
 from chad_tsdf_tpu_torch.io import load_checkpoint, save_checkpoint
 from chad_tsdf_tpu_torch.ops import fused_integrate, tile_accum
 from chad_tsdf_tpu_torch.parallel import ShardedTSDFMap, make_mesh
+from chad_tsdf_tpu_torch.utils import timing
 from tests.test_torch_fused import compare
 from tests.test_torch_steps_scan import (  # noqa: F401  (fixture)
     _StandInGraph, stand_in_graphs)
@@ -253,16 +254,18 @@ def test_sample_tiled_update_matches_jax(case, jax_slices):
     cfg, batch, js, jm = jax_slices[case]
     tb = integrate.SampleBatch(*(_t(a) for a in batch))
     state = create_state(cfg, origin_blocks_for_position(POS, cfg), "cpu")
+    syncs = timing.COUNTS["host_syncs"]
     ts, tm, tile_ovf, make_fallback = integrate.sample_tiled_update(
         state, tb, cfg)
     tail = integrate.FallbackTail(tile_ovf, make_fallback, cfg)
     ts = integrate.settle(tail, ts, tm)
+    # the settle's one host wait, nothing else
+    assert timing.COUNTS["host_syncs"] - syncs == 1
     compare(js, ts)
     assert int(ts.tile_overflow) == int(js.tile_overflow)
     assert (int(ts.tile_overflow) > 0) == (case != "dense")
     for key in ("n_valid_samples", "n_new_blocks", "n_blocks"):
         assert int(tm[key]) == int(jm[key]), key
-    assert tm["host_reads"] == 0
 
 
 def test_sample_tiled_insert_is_deferred_and_deterministic():
@@ -323,9 +326,12 @@ def test_map_stream_dispatches_sample_tile(monkeypatch):
         {"sample_tile"}
     ref = TSDFMap(config=_stream_cfg(accumulate_impl="xla"), device="cpu")
     for pts, pos in SCANS:
-        met = m.insert(pts, pos)
+        syncs = timing.COUNTS["host_syncs"]
+        m.insert(pts, pos)
+        grew = timing.COUNTS["host_syncs"] - syncs
         ref.insert(pts, pos)
-    assert met["host_reads"] == 0
+    # an insert waits once: it settles the previous insert's deferred tail
+    assert grew == 1
     assert m.n_submaps == 1 == ref.n_submaps
     assert int(m.state.tile_overflow) > 0
     lossy = {k: v for k, v in m.stats()["overflow"].items() if k != "tile"}
@@ -396,9 +402,13 @@ def test_sharded_map_sample_tile_equals_single_device():
     smap = ShardedTSDFMap(config=cfg, mesh=make_mesh(2, device="cpu"))
     ref = TSDFMap(config=cfg, device="cpu")
     for pts, pos in SCANS[:2]:
+        syncs = timing.COUNTS["host_syncs"]
         met = smap.insert(pts, pos)
+        grew = timing.COUNTS["host_syncs"] - syncs
         ref.insert(pts, pos)
-    assert met["route_overflow"] == 0 and met["host_reads"] == 0
+    # the second insert settles the first's two shard tails: two waits
+    assert grew == 2
+    assert met["route_overflow"] == 0
     assert sum(int(s.tile_overflow) for s in smap.state_stack) > 0
     cs, ss = smap.voxel_samples()
     cr, sr = ref.voxel_samples()

@@ -24,6 +24,7 @@ from chad_tsdf_tpu_torch.core import submap as t_submap
 from chad_tsdf_tpu_torch.core.dag import NodeLevels
 from chad_tsdf_tpu_torch.parallel import ShardedTSDFMap, make_mesh, sharded
 from chad_tsdf_tpu_torch.scripts.kitti_stream import count_host_reads
+from chad_tsdf_tpu_torch.utils import timing
 
 CFG = MapConfig(max_points=512, block_capacity=4096, touched_capacity=2048,
                 accumulate_impl="xla")
@@ -81,11 +82,15 @@ def test_sharded_map_n1_matches_single_device_exactly(impl):
     smap = _smap(cfg, 1)
     ref = TSDFMap(config=cfg, device="cpu")
     for pts_i in (pts, pts * 1.2):
+        syncs = timing.COUNTS["host_syncs"]
         m = smap.insert(pts_i, POS)
+        grew = timing.COUNTS["host_syncs"] - syncs
         ref.insert(pts_i, POS)
     if impl == "fused":
         assert smap._deferred is not None
-    assert m["route_overflow"] == 0 and m["host_reads"] == 0
+    # the second insert waits only to settle the first's fused tail
+    assert grew == (1 if impl == "fused" else 0)
+    assert m["route_overflow"] == 0
     st, rs = smap.state_stack[0], ref.state
     for f in ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
               "tile_overflow"):
