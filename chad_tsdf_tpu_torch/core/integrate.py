@@ -29,9 +29,10 @@ Six backends, chosen by ``MapConfig.accumulate_impl``:
 * ``xla`` (``auto`` on CPU): as ``pallas``, with the scatter-form
   accumulate.
 * ``seg`` (what ``TSDFMap`` dispatches sparse scans to on CUDA, under
-  ``auto``): :func:`insert_step_sparse_seg` — sample grids, one sort by
-  (block, offset), per-voxel integer sums, and a scatter of one entry per
-  unique voxel.  No tiles, no fallback, no kernel of its own beyond K2,
+  ``auto``): :func:`insert_step_sparse_seg` — the samples' sort keys
+  (``ops/seg_samples.py``, one kernel on CUDA), one sort by (block,
+  offset), per-voxel integer sums, and a scatter of one entry per unique
+  voxel.  No tiles, no fallback, no kernel beyond K2 and ``seg_samples``,
   and no host read.
 
 :func:`insert_step_packed` takes the int16 scanner-relative points of
@@ -83,7 +84,7 @@ from ..config import MapConfig
 from ..utils import timing
 
 from ..ops import (accumulate, dda, fused_integrate, morton, normals,
-                   normals_cuda, segops, tile_accum)
+                   normals_cuda, seg_samples, segops, tile_accum)
 from .state import INT32_MAX, ActiveMapState, clone_state, state_nbytes
 
 SD_QUANT = tile_accum.SD_QUANT
@@ -195,27 +196,30 @@ def sample_grids(px, py, pz, nx, ny, nz, sb, position, origin_blocks,
             samp_ovf.sum(dtype=torch.int32))
 
 
-def compute_sample_grids_soa(px, py, pz, sb, so, position, origin_blocks,
-                             config: MapConfig):
-    """Normals + DDA over Morton-sorted points -> (K, N) sample grids."""
+def sorted_with_normals(points, n_points, position, origin_blocks,
+                        config: MapConfig):
+    """The front of every insert: local keys, one Morton sort and the
+    normals of a padded cloud.  Returns (px, py, pz, nx, ny, nz, sb,
+    pt_overflow): the points, their normals and block keys in sorted
+    order, and the count of points outside the local extent."""
+    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
+    bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
+                                             origin_blocks, config)
+    sb, so, px, py, pz = sort_points_soa(px, py, pz, bkey, okey)
+    _stage("keys + sort")
     nx, ny, nz = estimate_normals_dispatch(px, py, pz, sb, so, position,
                                            origin_blocks, config)
     _stage("normals K2")
-    return sample_grids(px, py, pz, nx, ny, nz, sb, position, origin_blocks,
-                        config)
+    return px, py, pz, nx, ny, nz, sb, pt_overflow
 
 
 def compute_samples(points, n_points, position, origin_blocks,
                     config: MapConfig) -> SampleBatch:
     """Morton sort + normals + DDA: points -> flat packed samples."""
-    bkey, okey, pt_overflow = point_keys_soa(
-        points[:, 0], points[:, 1], points[:, 2], n_points, origin_blocks,
-        config)
-    sb, so, px, py, pz = sort_points_soa(points[:, 0], points[:, 1],
-                                         points[:, 2], bkey, okey)
-    _stage("keys + sort")
-    s_bkey, s_okey, sd, _, samp_overflow = compute_sample_grids_soa(
-        px, py, pz, sb, so, position, origin_blocks, config)
+    px, py, pz, nx, ny, nz, sb, pt_overflow = sorted_with_normals(
+        points, n_points, position, origin_blocks, config)
+    s_bkey, s_okey, sd, _, samp_overflow = sample_grids(
+        px, py, pz, nx, ny, nz, sb, position, origin_blocks, config)
     payload = pack_payload(s_okey, sd, config.sdf_trunc)
     payload = torch.where(s_bkey != INT32_MAX, payload, 0)
     _stage("DDA + payload")
@@ -552,28 +556,39 @@ def sparse_seg_entry_stream(points, n_points, position, origin_blocks,
     ``e_w`` (int32) its sample count; :func:`seg_entries_update` scales
     the sum to metres.
 
-    The samples are sorted once by ``bkey << 32 | payload``: the payload
-    (``offset << 16 | sd16``) is non-negative, so this is the JAX package's
-    two-key sort, and invalid samples (INT32_MAX, 0) come last.  The sums
-    are integer: an int64 running sum read at each voxel's last sample,
-    less its value at the previous voxel's.  Integer sums have no order,
-    so two runs are bit-equal, and they are exact for any number of
-    samples in a voxel (the JAX package carries the sum in f32, exact up
+    The samples come as the int64 keys ``bkey << 32 | payload`` of
+    ``ops/seg_samples.py`` (one kernel launch on CUDA, its plain version on
+    the CPU); ``batch`` holds its ``bkey`` and ``payload`` as views of the
+    keys' two 32-bit halves, in (K, N) sample order.  The keys are sorted
+    once: the payload (``offset << 16 | sd16``) is non-negative, so this is
+    the JAX package's two-key sort, and invalid samples (INT32_MAX, 0) come
+    last.  The sums are integer: an int64 running sum read at each voxel's
+    last sample, less its value at the previous voxel's.  Integer sums have
+    no order, so two runs are bit-equal, and they are exact for any number
+    of samples in a voxel (the JAX package carries the sum in f32, exact up
     to 2^24 / 32767 = 512 samples a voxel).  Nothing here reads the device
     from the host: the entries are compacted at the fixed capacity S.
 
     A separate function so that a sharded map can route entry streams
     (one consolidated entry per voxel) between shards.
     """
-    batch = compute_samples(points, n_points, position, origin_blocks,
-                            config)
-    s = batch.bkey.shape[0]
-    dev = batch.bkey.device
-    key, _ = torch.sort((batch.bkey.to(torch.int64) << 32) |
-                        batch.payload.to(torch.int64))
+    px, py, pz, nx, ny, nz, sb, pt_overflow = sorted_with_normals(
+        points, n_points, position, origin_blocks, config)
+    key, n_valid_samples, samp_overflow = seg_samples.seg_samples(
+        px, py, pz, nx, ny, nz, sb, position, origin_blocks * 8,
+        k=config.dda_steps, res=config.sdf_res, trunc=config.sdf_trunc,
+        extent=config.blocks_per_axis * 8)
+    key = key.reshape(-1)
+    # the key's two 32-bit halves, low word first: (payload, bkey)
+    halves = key.view(torch.int32).view(-1, 2)
+    batch = SampleBatch(halves[:, 1], halves[:, 0], pt_overflow,
+                        samp_overflow)
+    _stage("DDA + payload")
+    s = key.shape[0]
+    dev = key.device
+    key, _ = torch.sort(key)
     sb = (key >> 32).to(torch.int32)
     valid = sb != INT32_MAX
-    n_valid_samples = valid.sum(dtype=torch.int32)
     okey = ((key >> 16) & 0x1FF).to(torch.int32)
     q = ((key << 48) >> 48)                      # sign-extended sd16, int64
     _stage("2-key sort")
@@ -659,11 +674,12 @@ def insert_step_sparse_seg(state: ActiveMapState, points, n_points,
     LiDAR-shaped clouds (a dozen points per block, a few samples per voxel)
     overflow every per-point tile's block list, so the tiled backends send
     them through their fallback.  This path reduces first and scatters
-    last (:func:`sparse_seg_entry_stream`, :func:`seg_entries_update`), in
-    plain tensor operations.  The JAX package picks an entry bucket of
-    S/4 .. S by the live count to shorten its scatter; that choice reads
-    the count on the host and does not change the result (the entries are
-    a prefix), so the port runs the one capacity S.
+    last (:func:`sparse_seg_entry_stream`, :func:`seg_entries_update`): the
+    samples in one kernel on CUDA, the rest in plain tensor operations.
+    The JAX package picks an entry bucket of S/4 .. S by the live count to
+    shorten its scatter; that choice reads the count on the host and does
+    not change the result (the entries are a prefix), so the port runs the
+    one capacity S.
 
     Replaces the reference's per-sample hashmap upsert (octree.hpp:153-163)
     at its outdoor-LiDAR operating point.
@@ -786,13 +802,9 @@ def _fused_body(state: ActiveMapState, points, n_points, position,
     """The fused insert without its tail: (state, metrics, tile_ovf,
     make_fallback), the count of uncovered samples and the closure that
     recomputes the grids and makes the fallback's samples."""
-    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
     origin_blocks = state.origin_blocks
-    bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
-                                             origin_blocks, config)
-    sb, so, px, py, pz = sort_points_soa(px, py, pz, bkey, okey)
-    nx, ny, nz = estimate_normals_dispatch(px, py, pz, sb, so, position,
-                                           origin_blocks, config)
+    px, py, pz, nx, ny, nz, sb, pt_overflow = sorted_with_normals(
+        points, n_points, position, origin_blocks, config)
     pkeys, psd, pw, counts = fused_integrate.fused_tile_partials(
         px, py, pz, nx, ny, nz, sb, position, origin_blocks * 8,
         nb=config.tile_nb, k=config.dda_steps, res=config.sdf_res,
@@ -830,12 +842,10 @@ def insert_step_tiled(state: ActiveMapState, points, n_points,
 def _tiled_body(state: ActiveMapState, points, n_points, position,
                 config: MapConfig):
     """The tiled insert without its tail, as :func:`_fused_body`."""
-    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
-    bkey, okey, pt_overflow = point_keys_soa(px, py, pz, n_points,
-                                             state.origin_blocks, config)
-    sb, so, px, py, pz = sort_points_soa(px, py, pz, bkey, okey)
-    s_bkey, s_okey, sd, n_valid, samp_overflow = compute_sample_grids_soa(
-        px, py, pz, sb, so, position, state.origin_blocks, config)
+    px, py, pz, nx, ny, nz, sb, pt_overflow = sorted_with_normals(
+        points, n_points, position, state.origin_blocks, config)
+    s_bkey, s_okey, sd, n_valid, samp_overflow = sample_grids(
+        px, py, pz, nx, ny, nz, sb, position, state.origin_blocks, config)
     pkeys, psd, pw, ovfmask = tile_accum.tile_partials(
         s_bkey, s_okey, sd, config.tile_nb, config.sdf_trunc)
     ovfmask = ovfmask != 0

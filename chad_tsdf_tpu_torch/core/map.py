@@ -66,6 +66,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import native
 from ..config import MapConfig
 from ..mesh import device_mc, grid as grid_io, optimize, write_ply
 from ..mesh.mc import TriangleMesh, _vertex_normals, triangulate
@@ -81,6 +82,25 @@ from .state import (clone_state, create_state, origin_blocks_for_position,
 # at the default block_capacity, so there ``max_pending_finalize`` decides;
 # a larger block_capacity lets fewer wait
 _MAX_PENDING_BYTES = 1 << 30
+# the rows of a chunk the density estimate looks at, about
+_DENSITY_SAMPLE = 8192
+
+
+def block_density(chunk: np.ndarray, block: float) -> float:
+    """Points per distinct block of ``block`` metres, estimated from about
+    ``_DENSITY_SAMPLE`` evenly strided rows of the (n, 3) ``chunk``, taken
+    in float32: a block is ``floor(p / block)`` in float32, and the
+    distinct blocks are counted by ``native.distinct_block_keys``, or by
+    ``np.unique`` over the same keys without the library."""
+    chunk = np.ascontiguousarray(chunk, np.float32)
+    stride = max(1, len(chunk) // _DENSITY_SAMPLE)
+    n_sub = -(-len(chunk) // stride)
+    distinct = native.distinct_block_keys(chunk, stride, block)
+    if distinct is None:
+        b = np.floor(chunk[::stride] / np.float32(block)).astype(np.int64)
+        distinct = np.unique((b[:, 0] << 42) ^ (b[:, 1] << 21) ^
+                             b[:, 2]).shape[0]
+    return stride * n_sub / max(1, distinct)
 
 
 class LazyMetrics(collections.abc.MutableMapping):
@@ -410,15 +430,13 @@ class TSDFMap:
         segment sums and a scatter of unique voxels, no tile overflow by
         construction; ``sample_tile``: K4 over tiles of the block-sorted
         samples, with the sort fallback).  The density is estimated on the
-        host from a subsample: one cheap ``np.unique`` per insert."""
+        host from a subsample: its distinct blocks, counted in one pass by
+        ``native.distinct_block_keys`` (``np.unique`` without the library:
+        the same count)."""
         if (self.config.accumulate_impl != "auto"
                 or self.device.type != "cuda" or len(chunk) == 0):
             return self.config
-        stride = max(1, len(chunk) // 8192)
-        sub = chunk[::stride]
-        block = np.floor(sub / (8.0 * self.config.sdf_res)).astype(np.int64)
-        key = (block[:, 0] << 42) ^ (block[:, 1] << 21) ^ block[:, 2]
-        density = stride * len(sub) / max(1, np.unique(key).shape[0])
+        density = block_density(chunk, 8.0 * self.config.sdf_res)
         if density >= self.config.sparse_points_per_block:
             return self.config
         return dataclasses.replace(self.config,

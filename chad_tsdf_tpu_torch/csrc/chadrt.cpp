@@ -14,8 +14,14 @@
 //                addr x popcount(mask)], address = offset, 0 = null
 //   leaf level : flat uint64 pool, 1-based addresses
 //
+// It also holds the port's own host helper of TSDFMap.insert:
+// distinct_block_keys, the density estimate that picks a scan's accumulate
+// backend (core/map.py _dispatch_config), one pass and a hash set in place
+// of numpy's eight array passes and sort.
+//
 // Build: g++ -O3 -march=native -shared -fPIC -std=c++17 chadrt.cpp -o libchadrt.so
 
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -56,9 +62,48 @@ struct LeafLevel {
     LeafLevel() { raw.push_back(0); }  // address 0 reserved
 };
 
+// numpy's float32 -> int64 cast on x86-64 (cvttss2si): NaN, infinities
+// and values outside int64 give INT64_MIN.
+inline int64_t to_int64(float v) {
+    if (!(v >= -9.223372e18f && v < 9.223372e18f)) return INT64_MIN;
+    return static_cast<int64_t>(v);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The number of distinct keys (bx << 42) ^ (by << 21) ^ bz, with b =
+// int64(floor(p / block)) in float32 as numpy computes it, over the rows 0,
+// stride, 2 * stride, ... < n of the (n, 3) float32 points: the count
+// np.unique gives in core/map.py _dispatch_config.  An open-addressing hash
+// set at most half full.
+uint64_t distinct_block_keys(const float* pts, uint64_t n, uint64_t stride,
+                             float block) {
+    if (n == 0 || stride == 0) return 0;
+    const uint64_t m = (n + stride - 1) / stride;
+    int bits = 4;
+    while ((uint64_t{1} << bits) < 2 * m) ++bits;
+    const uint64_t mask = (uint64_t{1} << bits) - 1;
+    std::vector<uint64_t> table(mask + 1);
+    std::vector<uint8_t> used(mask + 1, 0);
+    uint64_t count = 0;
+    for (uint64_t i = 0; i < n; i += stride) {
+        const float* p = pts + 3 * i;
+        const uint64_t bx = static_cast<uint64_t>(to_int64(std::floor(p[0] / block)));
+        const uint64_t by = static_cast<uint64_t>(to_int64(std::floor(p[1] / block)));
+        const uint64_t bz = static_cast<uint64_t>(to_int64(std::floor(p[2] / block)));
+        const uint64_t key = (bx << 42) ^ (by << 21) ^ bz;
+        uint64_t h = (key * 0x9E3779B97F4A7C15ull) >> (64 - bits);
+        while (used[h] && table[h] != key) h = (h + 1) & mask;
+        if (!used[h]) {
+            used[h] = 1;
+            table[h] = key;
+            ++count;
+        }
+    }
+    return count;
+}
 
 // ---------------- node level ----------------
 void* nodelevel_new() { return new NodeLevel(); }

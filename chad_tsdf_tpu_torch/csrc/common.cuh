@@ -91,6 +91,162 @@ __device__ __forceinline__ int pack_payload(int okey, int q) {
   return (okey << 16) | (q & 0xFFFF);
 }
 
+// ---- The ray walk of K1 (fused_integrate.cu) and seg_samples
+// (seg_samples.cu): the Amanatides-Woo traversal of ops/dda.py through a
+// ray's truncation band, its projective signed distances and local keys.
+// Both kernels must give the voxels of the plain PyTorch traversal bit for
+// bit (the fused insert's fallback re-derives K1's coverage through it,
+// and the seg insert's plain twin is it), so every expression is the same
+// sequence of rounded f32 operations as dda.py, built with -fmad=false,
+// and res_recip is the host-rounded f32 of 1/res.
+
+constexpr float kFmax = 3.4028235e38f;
+
+// A voxel's local coordinates (each taken mod 2^13, the largest extent)
+// interleaved into one 39-bit Morton code: bits >> 9 are the block key,
+// bits & 511 the offset key (encode_block / encode_offset).  A DDA step
+// moves one axis by one voxel, which is an add on that axis's bits.
+constexpr unsigned long long kMortonX = 0x1249249249ull;   // x's 13 bits
+
+__device__ __forceinline__ unsigned long long spread3_13(int v) {
+  unsigned long long x = (unsigned)v & 0x1FFFu;
+  x = (x | (x << 16)) & 0x1F0000FF0000FFull;
+  x = (x | (x << 8)) & 0x100F00F00F00F00Full;
+  x = (x | (x << 4)) & 0x10C30C30C30C30C3ull;
+  x = (x | (x << 2)) & 0x1249249249249249ull;
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long step_morton(
+    unsigned long long m, unsigned long long mask, int dir) {
+  const unsigned long long a = dir > 0 ? (m | ~mask) + 1ull
+                                       : (m & mask) - 1ull;
+  return dir == 0 ? m : (a & mask) | (m & ~mask);
+}
+
+struct Axis {
+  int vs, vf, sdir;
+  float delta, tmax;
+};
+
+__device__ __forceinline__ Axis axis_setup(float p, float d, float res,
+                                           float res_recip, float trunc) {
+  Axis a;
+  const float start = p - d * trunc;
+  const float final_ = p + d * trunc;
+  a.vs = (int)floorf(start * res_recip);
+  a.vf = (int)floorf(final_ * res_recip);
+  const int diff = a.vf - a.vs;
+  a.sdir = (diff > 0) - (diff < 0);
+  const float d_recip = 1.0f / d;
+  a.delta = fabsf(d_recip * res);
+  const float bound = a.sdir < 0 ? floorf(start * res_recip) * res
+                                 : ceilf(start * res_recip) * res;
+  a.tmax = fabsf((bound - start) * d_recip);
+  if (a.sdir == 0) {
+    a.tmax = kFmax;
+    a.delta = kFmax;
+  }
+  return a;
+}
+
+// One ray's walk: its three axes, its current voxel, the axes' next
+// boundary crossings, whether it still emits, and the voxel's local Morton
+// code.
+struct Ray {
+  Axis ax, ay, az;
+  int vx, vy, vz;
+  float tx, ty, tz;
+  bool alive;
+  unsigned long long mc;
+};
+
+// The ray from the scanner q through the point (x, y, z), at its first
+// voxel (octree.hpp:96-125); valid is false for a padding point.  (ox, oy,
+// oz) is the local extent's origin voxel.
+__device__ __forceinline__ Ray ray_start(float x, float y, float z, float qx,
+                                         float qy, float qz, bool valid,
+                                         int ox, int oy, int oz, float res,
+                                         float res_recip, float trunc) {
+  float dx = x - qx;
+  float dy = y - qy;
+  float dz = z - qz;
+  const float norm = sqrtf(dx * dx + dy * dy + dz * dz);
+  const float inv = 1.0f / norm;
+  dx = dx * inv;
+  dy = dy * inv;
+  dz = dz * inv;
+  const bool dir_ok = isfinite(dx) && isfinite(dy) && isfinite(dz);
+  Ray w;
+  w.ax = axis_setup(x, dx, res, res_recip, trunc);
+  w.ay = axis_setup(y, dy, res, res_recip, trunc);
+  w.az = axis_setup(z, dz, res, res_recip, trunc);
+  w.vx = w.ax.vs;
+  w.vy = w.ay.vs;
+  w.vz = w.az.vs;
+  w.tx = w.ax.tmax;
+  w.ty = w.ay.tmax;
+  w.tz = w.az.tmax;
+  w.alive = dir_ok && valid;
+  w.mc = spread3_13(w.vx - ox) | (spread3_13(w.vy - oy) << 1) |
+         (spread3_13(w.vz - oz) << 2);
+  return w;
+}
+
+// One step to the next voxel: the axis pick of octree.hpp:128-148; the ray
+// stops emitting once the stepped axis passes its final voxel.
+__device__ __forceinline__ void ray_step(Ray& w) {
+  const bool pick_x = (w.tx < w.ty) && (w.tx < w.tz);
+  const bool pick_y = !(w.tx < w.ty) && (w.ty < w.tz);
+  bool passed;
+  if (pick_x) {
+    w.vx += w.ax.sdir;
+    w.tx = w.tx + w.ax.delta;
+    passed = w.vx == w.ax.vf + w.ax.sdir;
+    w.mc = step_morton(w.mc, kMortonX, w.ax.sdir);
+  } else if (pick_y) {
+    w.vy += w.ay.sdir;
+    w.ty = w.ty + w.ay.delta;
+    passed = w.vy == w.ay.vf + w.ay.sdir;
+    w.mc = step_morton(w.mc, kMortonX << 1, w.ay.sdir);
+  } else {
+    w.vz += w.az.sdir;
+    w.tz = w.tz + w.az.delta;
+    passed = w.vz == w.az.vf + w.az.sdir;
+    w.mc = step_morton(w.mc, kMortonX << 2, w.az.sdir);
+  }
+  w.alive = w.alive && !passed;
+}
+
+// The sample at the ray's current voxel: key is its local block key and
+// pay its pack_payload(offset, quantized sd), or kInt32Max and 0 where the
+// ray no longer emits or the voxel lies outside the local extent.  Counts
+// the valid samples and the emitted ones outside the extent.
+__device__ __forceinline__ void ray_sample(const Ray& w, float x, float y,
+                                           float z, float n0, float n1,
+                                           float n2, int ox, int oy, int oz,
+                                           int extent, float res, float trunc,
+                                           float qscale, int& key, int& pay,
+                                           int& n_valid, int& n_samp_ovf) {
+  const int lx = w.vx - ox, ly = w.vy - oy, lz = w.vz - oz;
+  const bool in_range = lx >= 0 && lx < extent && ly >= 0 && ly < extent &&
+                        lz >= 0 && lz < extent;
+  n_samp_ovf += (w.alive && !in_range);
+  const bool ok = w.alive && in_range;
+  n_valid += ok;
+  key = kInt32Max;
+  pay = 0;
+  if (ok) {
+    key = (int)(w.mc >> 9);              // encode_block(l >> 3)
+    const int okey = (int)(w.mc & 511u);   // encode_offset(l & 7)
+    // projective sd along the normal (octree.hpp:156-159)
+    float sd = n0 * ((float)w.vx * res - x) + n1 * ((float)w.vy * res - y) +
+               n2 * ((float)w.vz * res - z);
+    sd = fminf(fmaxf(sd, -trunc), trunc);
+    pay = pack_payload(okey, quantize_sd(sd, qscale));
+  }
+}
+
 // Minimum over the CTA; every thread gets the result.
 __device__ __forceinline__ int block_min(int v, int* s_red) {
   v = __reduce_min_sync(0xffffffffu, v);

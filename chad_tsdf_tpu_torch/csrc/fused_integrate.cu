@@ -29,64 +29,15 @@
 //
 // Exactness: the DDA must give the voxels of the plain PyTorch traversal
 // (ops/dda.py) bit for bit, because the fallback re-derives K1's coverage
-// through it.  The file is built with -fmad=false, every expression below
-// is the same sequence of rounded f32 operations as dda.py, and res_recip
-// is the host-rounded f32 of 1/res.  Signed distances are summed as
+// through it.  The walk (common.cuh ray_start / ray_step / ray_sample,
+// which seg_samples.cu shares) is built with -fmad=false, every expression
+// in it is the same sequence of rounded f32 operations as dda.py, and
+// res_recip is the host-rounded f32 of 1/res.  Signed distances are summed as
 // integers on the SD_QUANT grid (common.cuh), which is deterministic; the
 // error against an f32 sum is at most trunc / 65534 per sample.
 #include "common.cuh"
 
 namespace chad {
-
-constexpr float kFmax = 3.4028235e38f;
-
-// A voxel's local coordinates (each taken mod 2^13, the largest extent)
-// interleaved into one 39-bit Morton code: bits >> 9 are the block key,
-// bits & 511 the offset key (encode_block / encode_offset).  A DDA step
-// moves one axis by one voxel, which is an add on that axis's bits.
-constexpr unsigned long long kMortonX = 0x1249249249ull;   // x's 13 bits
-
-__device__ __forceinline__ unsigned long long spread3_13(int v) {
-  unsigned long long x = (unsigned)v & 0x1FFFu;
-  x = (x | (x << 16)) & 0x1F0000FF0000FFull;
-  x = (x | (x << 8)) & 0x100F00F00F00F00Full;
-  x = (x | (x << 4)) & 0x10C30C30C30C30C3ull;
-  x = (x | (x << 2)) & 0x1249249249249249ull;
-  return x;
-}
-
-__device__ __forceinline__ unsigned long long step_morton(
-    unsigned long long m, unsigned long long mask, int dir) {
-  const unsigned long long a = dir > 0 ? (m | ~mask) + 1ull
-                                       : (m & mask) - 1ull;
-  return dir == 0 ? m : (a & mask) | (m & ~mask);
-}
-
-struct Axis {
-  int vs, vf, sdir;
-  float delta, tmax;
-};
-
-__device__ __forceinline__ Axis axis_setup(float p, float d, float res,
-                                           float res_recip, float trunc) {
-  Axis a;
-  const float start = p - d * trunc;
-  const float final_ = p + d * trunc;
-  a.vs = (int)floorf(start * res_recip);
-  a.vf = (int)floorf(final_ * res_recip);
-  const int diff = a.vf - a.vs;
-  a.sdir = (diff > 0) - (diff < 0);
-  const float d_recip = 1.0f / d;
-  a.delta = fabsf(d_recip * res);
-  const float bound = a.sdir < 0 ? floorf(start * res_recip) * res
-                                 : ceilf(start * res_recip) * res;
-  a.tmax = fabsf((bound - start) * d_recip);
-  if (a.sdir == 0) {
-    a.tmax = kFmax;
-    a.delta = kFmax;
-  }
-  return a;
-}
 
 template <bool Wide>
 __global__ void __launch_bounds__(kTileThreads, 2)
@@ -115,67 +66,13 @@ fused_tile_kernel(const float* __restrict__ px, const float* __restrict__ py,
     const float x = px[i], y = py[i], z = pz[i];
     const float n0 = nx[i], n1 = ny[i], n2 = nz[i];
 
-    // ray direction (octree.hpp:96-97)
-    float dx = x - qx;
-    float dy = y - qy;
-    float dz = z - qz;
-    const float norm = sqrtf(dx * dx + dy * dy + dz * dz);
-    const float inv = 1.0f / norm;
-    dx = dx * inv;
-    dy = dy * inv;
-    dz = dz * inv;
-    const bool dir_ok = isfinite(dx) && isfinite(dy) && isfinite(dz);
-
-    const Axis ax = axis_setup(x, dx, res, res_recip, trunc);
-    const Axis ay = axis_setup(y, dy, res, res_recip, trunc);
-    const Axis az = axis_setup(z, dz, res, res_recip, trunc);
-
-    int vx = ax.vs, vy = ay.vs, vz = az.vs;
-    float tx = ax.tmax, ty = ay.tmax, tz = az.tmax;
-    bool alive = dir_ok && sb[i] != kInt32Max;
-    unsigned long long mc = spread3_13(vx - ox) | (spread3_13(vy - oy) << 1) |
-                            (spread3_13(vz - oz) << 2);
-
+    Ray ray = ray_start(x, y, z, qx, qy, qz, sb[i] != kInt32Max, ox, oy,
+                        oz, res, res_recip, trunc);
     for (int r = 0; r < k; ++r) {
-      if (r > 0) {
-        // axis pick of octree.hpp:128-148
-        const bool pick_x = (tx < ty) && (tx < tz);
-        const bool pick_y = !(tx < ty) && (ty < tz);
-        bool passed;
-        if (pick_x) {
-          vx += ax.sdir;
-          tx = tx + ax.delta;
-          passed = vx == ax.vf + ax.sdir;
-          mc = step_morton(mc, kMortonX, ax.sdir);
-        } else if (pick_y) {
-          vy += ay.sdir;
-          ty = ty + ay.delta;
-          passed = vy == ay.vf + ay.sdir;
-          mc = step_morton(mc, kMortonX << 1, ay.sdir);
-        } else {
-          vz += az.sdir;
-          tz = tz + az.delta;
-          passed = vz == az.vf + az.sdir;
-          mc = step_morton(mc, kMortonX << 2, az.sdir);
-        }
-        alive = alive && !passed;
-      }
-      const int lx = vx - ox, ly = vy - oy, lz = vz - oz;
-      const bool in_range = lx >= 0 && lx < extent && ly >= 0 &&
-                            ly < extent && lz >= 0 && lz < extent;
-      n_samp_ovf += (alive && !in_range);
-      const bool ok = alive && in_range;
-      n_valid += ok;
-      int key = kInt32Max, pay = 0;
-      if (ok) {
-        key = (int)(mc >> 9);              // encode_block(l >> 3)
-        const int okey = (int)(mc & 511u);   // encode_offset(l & 7)
-        // projective sd along the normal (octree.hpp:156-159)
-        float sd = n0 * ((float)vx * res - x) + n1 * ((float)vy * res - y) +
-                   n2 * ((float)vz * res - z);
-        sd = fminf(fmaxf(sd, -trunc), trunc);
-        pay = pack_payload(okey, quantize_sd(sd, qscale));
-      }
+      if (r > 0) ray_step(ray);
+      int key, pay;
+      ray_sample(ray, x, y, z, n0, n1, n2, ox, oy, oz, extent, res, trunc,
+                 qscale, key, pay, n_valid, n_samp_ovf);
       s.key[r * kTile + col] = key;
       s.pay[r * kTile + col] = pay;
     }

@@ -26,11 +26,16 @@ Kernels and the TPU kernels they replace (``chad_tsdf_tpu/ops/...``):
 * M2 ``micro_tile_accum``     <- scripts/micro_tile_accum.py:run
 * M3 ``micro_mxu8``           <- scripts/micro_mxu8.py:build
 
-and one kernel of the port's own, with no TPU kernel behind it: the
-one-thread ``set_conditional`` that sets a CUDA graph's IF node from a
-device count (``ops/conditional.py``), the JAX package's ``lax.cond`` on
-the fused/tile fallback.  Its host half, ``end_conditional``, launches
-nothing and is called through :func:`call`.
+and two kernels of the port's own, with no Pallas kernel behind them:
+
+* ``set_conditional``, the one-thread kernel that sets a CUDA graph's IF
+  node from a device count (``ops/conditional.py``), the JAX package's
+  ``lax.cond`` on the fused/tile fallback.  Its host half,
+  ``end_conditional``, launches nothing and is called through :func:`call`.
+* ``seg_samples``, the ``seg`` insert's ray samples as int64 sort keys in
+  one launch (``ops/seg_samples.py``): K1's DDA, signed distances and keys
+  where the JAX package leaves the same work to XLA
+  (``core/integrate.py`` ``sparse_seg_entry_stream``).
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ _SIGNATURES = {
     "micro_tile_accum": [_P] * 3 + [_I] * 3 + [_F] * 2 + [_P] * 3,
     "micro_mxu8": [_P] * 4 + [_I] * 4 + [_P] * 3,
     "set_conditional": [_P] * 2,
+    "seg_samples": [_P] * 9 + [_I] * 2 + [_F] * 3 + [_I] + [_F] + [_P] * 2,
 }
 # C entry points that launch no kernel (not counted), without the stream
 _HOST_SIGNATURES = {

@@ -1,11 +1,13 @@
 """ctypes bindings for the native host runtime (``csrc/chadrt.cpp``) — the
-port's own copy of ``chad_tsdf_tpu/native.py``.
+port's own copy of ``chad_tsdf_tpu/native.py``, with one helper of its own
+(:func:`distinct_block_keys`, the insert's density estimate).
 
 The shared library is built on demand with g++ the first time it is needed
 into ``_build/`` beside this file (which git ignores), never into the JAX
 package's tree (no pip dependencies; the binding layer is plain ctypes over
 an extern-C API).  All users fall back to the pure-numpy implementation
-(``core/dag.py``) when a compiler is unavailable — ``available()`` reports
+(``core/dag.py``; the density estimate to its numpy form in
+``core/map.py``) when a compiler is unavailable — ``available()`` reports
 which path is active.  This is host code: the fallback is the DAG's own
 numpy form, not a plain version of a device kernel.
 """
@@ -79,6 +81,9 @@ def _build_and_load():
         "lclevel_set_counters": ([ctypes.c_void_p, ctypes.c_uint64,
                                   ctypes.c_uint64], None),
         "lclevel_restore": ([ctypes.c_void_p, u64p, ctypes.c_uint64], None),
+        "distinct_block_keys": ([ctypes.c_void_p, ctypes.c_uint64,
+                                 ctypes.c_uint64, ctypes.c_float],
+                                ctypes.c_uint64),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -99,6 +104,22 @@ def get_lib():
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def distinct_block_keys(points: np.ndarray, stride: int,
+                        block: float) -> int | None:
+    """The number of distinct blocks ``np.unique`` counts in
+    ``core/map.py`` ``_dispatch_config`` over ``points[::stride]`` (C-
+    contiguous float32 (n, 3)), blocks of ``block`` metres taken in
+    float32; None without the library."""
+    if (points.dtype != np.float32 or points.ndim != 2
+            or points.shape[1] != 3 or not points.flags.c_contiguous):
+        raise ValueError("points must be C-contiguous float32 (n, 3)")
+    lib = get_lib()
+    if lib is None:
+        return None
+    return int(lib.distinct_block_keys(points.ctypes.data, points.shape[0],
+                                       stride, block))
 
 
 def _u32(a: np.ndarray):

@@ -27,7 +27,8 @@ backend as on the card (``--sparse-impl``, ``seg`` unless said; ``--device
 cpu`` forces it).  On the card ``TSDFMap.insert`` replays its CUDA graph,
 so 1 profiles the replays; the stages of 2 are those of the eager insert
 (a graph replays no Python, so nothing marks them there): keys + sort,
-normals (K2), DDA + payload, then under ``seg`` the 2-key sort, the
+normals (K2), DDA + payload (under ``seg`` the ``seg_samples`` kernel),
+then under ``seg`` the 2-key sort, the
 segmented sum, compaction, directory and scatter, under ``sample_tile``
 the sample sort, K4 and the K3 merge (its fallback, when a tile's list
 overflows, is settled at the next insert and lands in that insert's

@@ -12,7 +12,7 @@ tools/tpu_kernel_equality.py's configurations):
 
 * ``dense_sphere_1m``: the 2^20-point r = 5 m sphere (seed 420) at
   ``MapConfig(max_points=2^20)``: ``fused`` (K2, K1, K3), ``tile`` (K2, K4,
-  K3), ``pallas`` (K2, K5), ``seg`` (K2 and plain ops) and ``sample_tile``
+  K3), ``pallas`` (K2, K5), ``seg`` (K2 and ``seg_samples``) and ``sample_tile``
   (K2, K4 over tiles of the sorted samples at ``sparse_tile_nb`` 128, K3,
   and K5 for what the lists leave);
 * ``sparse_lidar_131k``: ``io.kitti.synthetic_lidar_scan`` (seed 0, from

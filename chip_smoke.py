@@ -46,7 +46,13 @@ runs, failing with a non-zero exit on the first error:
    never calls; the one-thread kernel that sets a CUDA graph's IF node
    (``ops/conditional.py``) in a captured graph whose IF body allocates,
    replayed for counts of both signs and zero after the allocator emptied
-   its cache and gave memory away, against its plain version;
+   its cache and gave memory away, against its plain version; the ``seg``
+   insert's sample kernel (``ops/seg_samples.py``) on ``kitti_parked``'s 8
+   street sweeps (``tsdf_bench/``), each padded to its 131,072-point
+   bucket, and on a ragged cloud with a point outside the local extent, a
+   ray leaving it and a zero-length ray: keys (in order and sorted),
+   ``n_valid`` and the sample overflow bit-equal to its plain version, a
+   second launch bit-equal, timed beside the plain version with its bound;
 3. the main path: ``TSDFMap(0.05, 0.1, device="cuda")`` at the default
    MapConfig inserts the 2^20-point r = 5 m sphere (seed 420, bench.py's
    cloud) six times (the first runs eagerly and captures the map's CUDA
@@ -87,7 +93,10 @@ runs, failing with a non-zero exit on the first error:
    K4 not at all;
    ``seg`` against the scatter backend and packed against f32 ingest on one
    scan; two ``seg`` streams bit-equal in pools and DAG counters, and a
-   stream drained after every insert equal to the deferred one;
+   stream drained after every insert equal to the deferred one; and
+   ``kitti_parked``'s 8 sweeps twice through the map's graph, eagerly,
+   and eagerly with ``seg_samples``' plain version: directories and pools
+   bit-equal, the graph launching K2 and ``seg_samples`` once a replay;
 9. ``save`` on the card: the phase-3 sphere map and a ``seg`` stream map
    of phase 8 (2 pending rotations, drained by the save) each saved under
    ``auto``, which must run device marching cubes once, and then with
@@ -184,19 +193,20 @@ right after them: K1, K2, K3 and ``set_conditional`` must have launched
 there, and the map's graph must hold one of each outside its IF node.
 They are reset again just before phase 4's sparse insert, where K4 and K5
 must launch, just before phase 7's timing runs, where M1-M3 must launch,
-and just before phase 8's stream, where K2 must launch twice (the eager
-scan and the capture), the graph one K2 a replay, and K1, K3, K4 and K5
-not at all; and before each of phase 8's ``sample_tile`` streams, where
-K2, the sorted K4, K3 and ``set_conditional`` must launch and K1 and the
-general K4 not at all.
+and just before phase 8's stream, where K2 and ``seg_samples`` must
+launch twice each (the eager scan and the capture), the graph one of each
+a replay, and K1, K3, K4 and K5 not at all; and before each of phase 8's
+``sample_tile`` streams, where K2, the sorted K4, K3 and
+``set_conditional`` must launch and K1, the general K4 and
+``seg_samples`` not at all.
 Phases 10-12 reset them just before their own inserts and read them right
 after (K2 on the carved stream and the checkpoint's 2 scans, K1-K3 on the
 loop closure's sphere passes); phase 13 just before one N = 4 dense insert
 (K1-K3) and the N = 4 stream (K2, K3).
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
-for K4-K5, phase 8's ``sample_tile`` stream for the sorted K4, phase 7 for
-M1-M3 (and, as ``launches_stream``,
+for K4-K5, phase 8's ``sample_tile`` stream for the sorted K4, phase 8's
+``seg`` stream for ``seg_samples``, phase 7 for M1-M3 (and, as ``launches_stream``,
 ``launches_carve``, ``launches_checkpoint`` and ``launches_loop_closure``,
 in the inserts of phases 8, 10, 11 and 12, and as
 ``launches_sharded_dense`` and ``launches_sharded_stream`` in phase 13's,
@@ -262,6 +272,9 @@ KERNELS = {
     # no TPU kernel: it sets the IF node that stands for the lax.cond
     "set_conditional": ("chad_tsdf_tpu_torch/csrc/conditional.cu",
                         "chad_tsdf_tpu/core/integrate.py:674"),
+    # no TPU kernel: the seg insert's samples, which XLA computes there
+    "seg_samples": ("chad_tsdf_tpu_torch/csrc/seg_samples.cu",
+                    "chad_tsdf_tpu/core/integrate.py:759"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores
@@ -627,6 +640,96 @@ def kitti_scan_inputs(cfg, dev):
                                        cfg.normal_max_depth)
     return (pts, pos, bucket, sb, so, px, py, pz,
             *(n.contiguous() for n in nk))
+
+
+def parked_street(seed=20261018):
+    """The ``kitti_parked`` cell's traffic (``tsdf_bench/``): its map
+    configuration and its 8 street sweeps cast from the parked car, each
+    with the range noise ``seed`` draws: (MapConfig, [(points, position)]
+    * 8)."""
+    from chad_tsdf_tpu_torch import MapConfig
+    from tsdf_bench.traffic import lidar
+    with open(os.path.join(ROOT, "tsdf_bench", "configs",
+                           "kitti_hdl64.json")) as fh:
+        conf = json.load(fh)
+    with open(os.path.join(ROOT, "tsdf_bench", "workloads",
+                           "kitti_parked.json")) as fh:
+        params = json.load(fh)["params"]
+    traffic = lidar.Traffic(conf, params, seed)
+    sweeps = [traffic.points(i) for i in range(params["templates"])]
+    return (MapConfig(**conf["map_config"]),
+            [(p, traffic.position(i)) for i, p in enumerate(sweeps)])
+
+
+def seg_kernel_inputs(pts, n_valid, pos, cfg, dev):
+    """What ``sparse_seg_entry_stream`` hands ``seg_samples`` for the cloud
+    ``pts`` (rows from ``n_valid`` on are padding) cast from ``pos``: the
+    Morton-sorted points, their K2 normals, block keys, the position and
+    the origin voxel."""
+    from chad_tsdf_tpu_torch.core import integrate
+    from chad_tsdf_tpu_torch.core.state import origin_blocks_for_position
+    p = torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev)
+    position = torch.from_numpy(np.float32(pos)).to(dev)
+    ob = torch.from_numpy(origin_blocks_for_position(pos, cfg)).to(dev)
+    px, py, pz, nx, ny, nz, sb, _ = integrate.sorted_with_normals(
+        p, n_valid, position, ob, cfg)
+    return (px, py, pz, nx, ny, nz, sb, position, ob * 8)
+
+
+def check_seg_samples(results):
+    """Phase 2, the seg insert's sample kernel (``ops/seg_samples.py``)
+    against its plain version: the 8 street sweeps of ``kitti_parked``,
+    each padded to its 131,072-point bucket, and a ragged cloud (5,003 rows
+    of which 4,000 are points, with one far outside the local extent, one
+    whose ray leaves it and one at the scanner): keys bit-equal in (K, N)
+    order and sorted, ``n_valid`` and the sample overflow equal, and a
+    second launch bit-equal to the first; timed on sweep 0 beside its
+    plain version (the sequence the seg insert ran before), with its
+    bound."""
+    from chad_tsdf_tpu_torch.ops import seg_samples
+
+    dev = torch.device("cuda")
+    cfg, sweeps = parked_street()
+    bucket = 1 << 17
+    kw = dict(k=cfg.dda_steps, res=cfg.sdf_res, trunc=cfg.sdf_trunc,
+              extent=cfg.blocks_per_axis * 8)
+    ragged = sphere(4000, 3.0, 3)
+    face = (cfg.blocks_per_axis // 2) * 8 * cfg.sdf_res
+    ragged[:3] = [[300.0, 1.0, 2.0], [face - 0.02, 0.0, 0.0], [0.0, 0.0, 0.0]]
+    clouds = [(f"street sweep {i}", np.resize(p, (bucket, 3)), len(p), pos)
+              for i, (p, pos) in enumerate(sweeps)]
+    clouds.append(("ragged 5003 rows, 4000 points",
+                   np.resize(ragged, (5003, 3)), 4000, np.zeros(3)))
+    seen = []
+    for name, pts, n_valid, pos in clouds:
+        args = seg_kernel_inputs(pts, n_valid, pos, cfg, dev)
+        got = seg_samples.seg_samples(*args, **kw)
+        want = seg_samples.seg_samples_plain(*args, **kw)
+        again = seg_samples.seg_samples(*args, **kw)
+        require(torch.equal(got[0], want[0]) and
+                torch.equal(torch.sort(got[0].reshape(-1))[0],
+                            torch.sort(want[0].reshape(-1))[0]),
+                f"seg_samples keys differ from the plain version ({name})")
+        require(int(got[1]) == int(want[1]) and int(got[2]) == int(want[2]),
+                f"seg_samples counts [{int(got[1])}, {int(got[2])}] against "
+                f"the plain [{int(want[1])}, {int(want[2])}] ({name})")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"two seg_samples launches differ ({name})")
+        seen.append([name, int(got[1]), int(got[2])])
+    require(seen[-1][2] > 0, "the ragged cloud overflowed no sample")
+    args = seg_kernel_inputs(clouds[0][1], clouds[0][2], clouds[0][3], cfg,
+                             dev)
+    k = cfg.dda_steps
+    results["seg_samples"] = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: seg_samples.seg_samples(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: seg_samples.seg_samples_plain(
+            *args, **kw), reps=3), "points": bucket}
+    results["seg_samples"]["bound_ms"], results["seg_samples"]["bound_by"] = \
+        bound(28 * bucket + 24 + 8 * k * bucket + 8,
+              (K1_OPS_PER_POINT + K1_OPS_PER_STEP * k) * bucket)
+    log(f"seg_samples: keys bit-equal to the plain version, [name, n_valid, "
+        f"n_samp_ovf] {seen}; {results['seg_samples']}")
 
 
 def check_sample_tile(cfg, results):
@@ -1169,13 +1272,17 @@ def run_stream(cfg):
             require(reads == {}, f"{name} inserts read the host: {reads}")
             if name == "seg":
                 # scan 0 ran eagerly and captured the map's graph; scans
-                # 1.. replayed it, each launching K2 and nothing else
+                # 1.. replayed it, each launching K2 and seg_samples and
+                # nothing else
                 (sg,) = m._graphs.values()
                 require(launches["estimate_normals"] == 2 and
+                        launches["seg_samples"] == 2 and
                         sg.replays == len(scans) - 1 and
-                        sg.launches == {"estimate_normals": 1} and
+                        sg.launches == {"estimate_normals": 1,
+                                        "seg_samples": 1} and
                         not sg.body_launches,
-                        f"K2 launched {launches['estimate_normals']} times "
+                        f"K2 launched {launches['estimate_normals']} and "
+                        f"seg_samples {launches['seg_samples']} times "
                         f"for {len(scans)} seg inserts; the graph: "
                         f"{sg.replays} replays, launches {sg.launches}, in "
                         f"its IF node {sg.body_launches}")
@@ -1200,13 +1307,16 @@ def run_stream(cfg):
                         f"{sg.body_launches}")
                 require(all(launches[k] > 0 for k in outer) and
                         launches["fused_tile_partials"] == 0 and
-                        launches["tile_partials"] == 0,
+                        launches["tile_partials"] == 0 and
+                        launches["seg_samples"] == 0,
                         f"sample_tile stream launches {launches}")
                 sample_tile_launches = launches
             if name == "seg eager":
-                require(launches["estimate_normals"] == len(scans),
-                        f"K2 launched {launches['estimate_normals']} times "
-                        f"in {len(scans)} eager seg inserts")
+                require(launches["estimate_normals"] == len(scans) and
+                        launches["seg_samples"] == len(scans),
+                        f"K2 launched {launches['estimate_normals']} and "
+                        f"seg_samples {launches['seg_samples']} times in "
+                        f"{len(scans)} eager seg inserts")
             if rnd > 0:
                 rates[name].append((len(scans) - 1) / dt)
             if name.startswith("seg") and "seg" in maps:
@@ -1291,6 +1401,59 @@ def run_stream(cfg):
         f"{c1.shape[0]} / {c2.shape[0]} voxels, sd diff median "
         f"{np.median(diff):.2e} mean {np.mean(diff):.2e}")
     return stream_launches, sample_tile_launches, rk2, undrained
+
+
+def check_parked_seg():
+    """Phase 8, ``kitti_parked``'s parked car: its 8 sweeps twice into
+    three maps, through the map's graph (K2 and ``seg_samples`` once a
+    replay), eagerly, and eagerly with the plain version in the kernel's
+    place (the sequence the seg insert ran before): directories and pools
+    bit-equal."""
+    from chad_tsdf_tpu_torch import TSDFMap, kernels
+    from chad_tsdf_tpu_torch.ops import seg_samples
+
+    cfg, sweeps = parked_street()
+    scans = sweeps * 2
+    kernel = seg_samples.seg_samples
+    maps, counts = {}, {}
+    for name in ("graph", "eager", "eager plain"):
+        m = TSDFMap(config=cfg, device="cuda")
+        m.graphs_enabled = name == "graph"
+        kernels.reset_launches()
+        if name == "eager plain":
+            seg_samples.seg_samples = seg_samples.seg_samples_plain
+        try:
+            for pts, pos in scans:
+                m.insert(pts, pos)
+        finally:
+            seg_samples.seg_samples = kernel
+        counts[name] = kernels.LAUNCHES["seg_samples"]
+        backends = {m._dispatch_config(p).accumulate_impl for p, _ in sweeps}
+        require(backends == {"seg"}, f"parked sweeps dispatched to {backends}")
+        want = {"graph": 2, "eager": len(scans), "eager plain": 0}[name]
+        require(counts[name] == want, f"parked {name}: seg_samples launched "
+                                      f"{counts[name]} times, not {want}")
+        if name == "graph":
+            (g,) = m._graphs.values()
+            require(g.replays == len(scans) - 1 and
+                    g.launches == {"estimate_normals": 1, "seg_samples": 1},
+                    f"the parked graph: {g.replays} replays, launches "
+                    f"{g.launches}")
+        maps[name] = m
+    for name in ("eager", "eager plain"):
+        bit_equal_maps(maps[name], maps["graph"],
+                       f"parked seg {name} against the graph")
+    st = maps["graph"].state
+    lossy = {k: int(getattr(st, k)) for k in
+             ("point_overflow", "sample_overflow", "block_overflow",
+              "touched_overflow")}
+    require(not any(lossy.values()), f"parked overflow {lossy}")
+    log(f"phase 8 parked car ({len(scans)} inserts of kitti_parked's 8 "
+        f"sweeps): the graph's, the eager and the plain version's eager "
+        f"maps bit-equal (dir_keys, dir_slots, n_blocks, pool_sd, pool_w); "
+        f"n_blocks {int(st.n_blocks)}; seg_samples launches {counts}")
+    del maps, st
+    torch.cuda.empty_cache()
 
 
 def timed_save(m, impl, path):
@@ -1457,7 +1620,7 @@ def run_carve():
         (cg,) = m._graphs.values()
         require(launches["estimate_normals"] == 2 and
                 cg.replays == len(scans) - 1 and
-                cg.launches == {"estimate_normals": 1},
+                cg.launches == {"estimate_normals": 1, "seg_samples": 1},
                 f"K2 launched {launches['estimate_normals']} times for "
                 f"{len(scans)} carved inserts; the graph: {cg.replays} "
                 f"replays, launches {cg.launches}")
@@ -2226,6 +2389,7 @@ KERNEL_SYMBOLS = {
     "tile_partials_sorted": ("tile_heads_kernel",),
     "accumulate_segments": ("accumulate_chunks_kernel",),
     "set_conditional": ("set_conditional_kernel",),
+    "seg_samples": ("seg_samples_kernel",),
 }
 GRAPH_FIELDS = ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
                 "point_overflow", "sample_overflow", "block_overflow",
@@ -2720,6 +2884,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_sample_tile(cfg, results)
     torch.cuda.empty_cache()
+    check_seg_samples(results)
+    torch.cuda.empty_cache()
     check_k5(cfg, results)
     check_conditional(results)
     micro_errs = check_micro()
@@ -2929,6 +3095,7 @@ def main() -> int:
     # ---- phase 8: the sparse streaming path ----
     stream_launches, sample_tile_launches, rk2, stream_map = run_stream(cfg)
     results["estimate_normals"]["kitti_scan"] = rk2
+    check_parked_seg()
 
     # ---- phase 9: save on the card, device against host ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -2968,6 +3135,8 @@ def main() -> int:
                         "tile_partials_sorted"],
                     accumulate_segments=sparse_launches[
                         "accumulate_segments"],
+                    # the seg stream of phase 8
+                    seg_samples=stream_launches["seg_samples"],
                     **{k: micro_launches[k] for k in (
                         "micro_stagea_phases", "micro_tile_accum",
                         "micro_mxu8")})

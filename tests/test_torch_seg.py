@@ -6,7 +6,13 @@ and within one 16-bit quantum per sample, metrics equal); the tiny and the all-u
 tests/test_integrate.py's entry-bucket test; the port's ``seg`` against the
 port's scatter backend; a voxel with more than 512 samples, where the
 port's integer sum is the exact one; and that a ``seg`` insert reads no
-tensor on the host.  Same inputs, made from a numpy seed, through both."""
+tensor on the host.  Same inputs, made from a numpy seed, through both.
+
+The port alone: the plain version of ``ops/seg_samples.py`` (the ``seg``
+insert's sample keys, one kernel on the card) against the sequence it
+replaced (``compute_samples`` and ``bkey << 32 | payload``) bit for bit,
+the wrapper's CPU route, and ``sparse_seg_entry_stream``'s seven values
+against a numpy reduction of ``compute_samples``' samples."""
 
 import dataclasses
 
@@ -23,7 +29,9 @@ from chad_tsdf_tpu_torch import MapConfig
 from chad_tsdf_tpu_torch.core import integrate as t_integrate
 from chad_tsdf_tpu_torch.core.state import (INT32_MAX, create_state,
                                             origin_blocks_for_position)
+from chad_tsdf_tpu_torch import kernels
 from chad_tsdf_tpu_torch.io.kitti import synthetic_lidar_scan
+from chad_tsdf_tpu_torch.ops import seg_samples
 from chad_tsdf_tpu_torch.scripts.kitti_stream import count_host_reads
 from chad_tsdf_tpu_torch.utils import timing
 
@@ -301,3 +309,110 @@ def test_seg_insert_reads_nothing_on_the_host():
         int(m["n_blocks"])
         m["n_valid_samples"].item()
     assert reads.get("__int__") == 1 and reads.get("item", 0) >= 1
+
+
+def _edge_cloud(name):
+    """A named cloud with its awkward rows: a point 300 m out (outside the
+    local extent: a point overflow), one 2 cm inside the extent's +x face
+    whose ray leaves it (sample overflows), one at the scanner itself (a
+    zero-length ray), and padding rows past ``n_points``.  Returns
+    (points f32[N, 3] padded, n_points, position, origin_blocks)."""
+    pts, pos = _cloud(name)
+    origin = origin_blocks_for_position(pos, CFG)
+    face = (float(origin[0]) + CFG.blocks_per_axis) * 8 * CFG.sdf_res
+    extra = np.float32([[300.0, 1.0, 2.0],
+                        [face - 0.02, pos[1], pos[2]],
+                        pos])
+    pts = np.concatenate([pts[:N - 64], extra])
+    return _padded(pts), len(pts), pos, origin
+
+
+def _sorted_with_normals(points, n, pos, origin):
+    """``sparse_seg_entry_stream``'s inputs to the sample kernel: the
+    Morton-sorted points, their normals and block keys, the position and
+    the origin voxel."""
+    ob = torch.from_numpy(origin)
+    position = torch.from_numpy(pos)
+    px, py, pz, nx, ny, nz, sb, _ = t_integrate.sorted_with_normals(
+        points, n, position, ob, CFG)
+    return (px, py, pz, nx, ny, nz, sb, position, ob * 8)
+
+
+SEG_KW = dict(k=CFG.dda_steps, res=CFG.sdf_res, trunc=CFG.sdf_trunc,
+              extent=CFG.blocks_per_axis * 8)
+
+
+@pytest.mark.parametrize("cloud", ["dense sphere", "lidar"])
+def test_seg_samples_plain_equals_compute_samples(cloud):
+    """The plain version's keys equal ``bkey << 32 | payload`` of
+    ``compute_samples`` bit for bit, sorted and in (K, N) order; its counts
+    equal the valid samples and ``samp_overflow``."""
+    pts, n, pos, origin = _edge_cloud(cloud)
+    points = torch.from_numpy(pts)
+    ref = t_integrate.compute_samples(points, n, torch.from_numpy(pos),
+                                      torch.from_numpy(origin), CFG)
+    ref_key = (ref.bkey.to(torch.int64) << 32) | ref.payload.to(torch.int64)
+    key, n_valid, samp_ovf = seg_samples.seg_samples_plain(
+        *_sorted_with_normals(points, n, pos, origin), **SEG_KW)
+    assert key.shape == (CFG.dda_steps, N) and key.dtype == torch.int64
+    assert torch.equal(torch.sort(key.reshape(-1))[0],
+                       torch.sort(ref_key)[0])
+    assert torch.equal(key.reshape(-1), ref_key)
+    assert int(n_valid) == int((ref.bkey != INT32_MAX).sum()) > 0
+    assert int(samp_ovf) == int(ref.samp_overflow) > 0
+    assert int(ref.pt_overflow) == 1
+    # invalid samples are exactly INT32_MAX << 32 | 0
+    dead = ref.bkey == INT32_MAX
+    assert (key.reshape(-1)[dead] == INT32_MAX << 32).all()
+
+
+def test_seg_samples_takes_the_plain_version_on_cpu(monkeypatch):
+    def no_kernel(*args, **kw):
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(kernels, "launch", no_kernel)
+    monkeypatch.setattr(kernels, "library", no_kernel)
+    pts, n, pos, origin = _edge_cloud("lidar")
+    args = _sorted_with_normals(torch.from_numpy(pts), n, pos, origin)
+    got = seg_samples.seg_samples(*args, **SEG_KW)
+    want = seg_samples.seg_samples_plain(*args, **SEG_KW)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cloud", ["dense sphere", "lidar"])
+def test_entry_stream_equals_its_samples_reduced(cloud):
+    """``sparse_seg_entry_stream``'s seven values against ``compute_samples``
+    reduced in numpy: one entry per unique voxel, ascending, with its
+    sample count and exact sum of quanta, INT32_MAX / zeros past
+    ``e_total``; the valid samples; and a batch whose keys, payloads and
+    overflow counts are ``compute_samples``' own."""
+    pts, n, pos, origin = _edge_cloud(cloud)
+    args = (torch.from_numpy(pts), n, torch.from_numpy(pos),
+            torch.from_numpy(origin))
+    e_b, e_okey, e_sd_q, e_w, e_total, n_valid, batch = \
+        t_integrate.sparse_seg_entry_stream(*args, CFG)
+    ref = t_integrate.compute_samples(*args, CFG)
+    for f in ("bkey", "payload", "pt_overflow", "samp_overflow"):
+        assert torch.equal(getattr(batch, f), getattr(ref, f)), f
+
+    bkey = ref.bkey.numpy().astype(np.int64)
+    payload = ref.payload.numpy().astype(np.int64)
+    live = bkey != INT32_MAX
+    voxel = (bkey[live] << 9) | (payload[live] >> 16)
+    q = ((payload[live] & 0xFFFF) ^ 0x8000) - 0x8000      # sign-extend
+    uniq, inv, counts = np.unique(voxel, return_inverse=True,
+                                  return_counts=True)
+    sums = np.zeros(uniq.shape[0], np.int64)
+    np.add.at(sums, inv, q)
+    m = int(e_total)
+    assert m == uniq.shape[0] and int(n_valid) == int(live.sum())
+    assert n_valid.dtype == torch.int32
+    np.testing.assert_array_equal(e_b.numpy()[:m], uniq >> 9)
+    np.testing.assert_array_equal(e_okey.numpy()[:m], uniq & 511)
+    np.testing.assert_array_equal(e_w.numpy()[:m], counts)
+    np.testing.assert_array_equal(e_sd_q.numpy()[:m], sums)
+    assert (e_b.numpy()[m:] == INT32_MAX).all()
+    for t in (e_okey, e_sd_q, e_w):
+        assert not t[m:].any()
+    assert e_b.shape == (CFG.dda_steps * N,)

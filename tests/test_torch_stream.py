@@ -111,6 +111,54 @@ def test_dispatch_config_matches_jax(cloud, monkeypatch):
     assert tm._dispatch_config(pts).accumulate_impl == "fused"
 
 
+def _density_numpy(chunk, block):
+    """The JAX package's density estimate (``TSDFMap._dispatch_config``),
+    written out: points per distinct block over every stride-th row."""
+    stride = max(1, len(chunk) // 8192)
+    sub = chunk[::stride]
+    b = np.floor(sub / block).astype(np.int64)
+    key = (b[:, 0] << 42) ^ (b[:, 1] << 21) ^ b[:, 2]
+    return stride * len(sub) / max(1, np.unique(key).shape[0])
+
+
+def _density_cloud(name):
+    rng = np.random.default_rng(17)
+    if name == "lidar":
+        return t_kitti.synthetic_lidar_scan([3.0, -2.0, 0.0], seed=4)
+    if name == "sphere":
+        return _sphere(1 << 16, 5.0)
+    if name == "odd sizes":
+        return (rng.normal(size=(8193, 3)) * 30).astype(np.float32)
+    if name == "one point":
+        return np.float32([[-0.3, 0.2, -7.9]])
+    # negative, huge and non-finite coordinates: numpy's cast gives
+    # INT64_MIN for NaN, the infinities and what int64 cannot hold
+    pts = rng.uniform(-3e3, 3e3, (20011, 3)).astype(np.float32)
+    pts[::7, 0] = np.nan
+    pts[1::11, 1] = np.inf
+    pts[2::13, 2] = -np.inf
+    pts[3::17] = np.float32(3e20)
+    pts[4::19] = np.float32(-3e20)
+    return pts
+
+
+@pytest.mark.parametrize("cloud", ["lidar", "sphere", "odd sizes",
+                                   "one point", "extremes"])
+def test_block_density_matches_numpy(cloud, monkeypatch):
+    """``block_density`` (the native count of distinct blocks, and its
+    numpy fallback) equals the JAX package's ``np.unique`` estimate
+    exactly, so both packages dispatch every cloud alike."""
+    pts = np.ascontiguousarray(_density_cloud(cloud), np.float32)
+    from chad_tsdf_tpu_torch import native
+    assert native.available(), "g++ did not build csrc/chadrt.cpp"
+    with np.errstate(invalid="ignore"):
+        want = _density_numpy(pts, 8.0 * 0.05)
+        assert t_map.block_density(pts, 8.0 * 0.05) == want
+        monkeypatch.setattr(native, "distinct_block_keys",
+                            lambda *a: None)
+        assert t_map.block_density(pts, 8.0 * 0.05) == want
+
+
 def test_packed_ingest_agrees_with_plain():
     """tests/test_map.py's bar: up to the 3.1 mm input quantization the
     packed map is the plain one (voxel sets overlap >= 95%, shared voxels
