@@ -39,9 +39,10 @@ F32_EPS = 2.0 ** -24
 def sd_tolerance(ref: R.Voxels) -> np.ndarray:
     """Per voxel: ``SD_OFF_M`` plus the bound on the rounding of a
     recursive f32 sum of ``n`` adds, u * n * sum|x| (u = 2^-24), over the
-    count, with two adds an insert (K3 merges up to a row per tile that
-    holds the voxel).  A map that keeps integrating one place for
-    thousands of inserts drifts by some 1e-5 m that way."""
+    count, with two adds an update: an insert's band (K3 merges up to a row
+    per tile that holds the voxel) or an insert's carve (its product and
+    its add).  A map that keeps integrating one place for thousands of
+    inserts drifts by some 1e-5 m that way."""
     adds = 2.0 * ref.inserts.cpu().numpy()
     mean_abs = (ref.abs_sums / ref.counts.to(torch.float64)).cpu().numpy()
     return SD_OFF_M + F32_EPS * adds * mean_abs
@@ -175,7 +176,16 @@ def merge(numbers: list) -> dict:
 
 class Reference:
     """The reference's voxels for groups of inserts, each (template,
-    position) computed once and weighted by how often it was inserted."""
+    position) computed once and weighted by how often it was inserted.
+
+    A carving map's carve depends on what the submap holds (the erosion
+    rule, ``reference/tsdf_ref.py``), so the steps of a group are walked in
+    insert order: the band of each (template, position) is computed once,
+    and its carve once per size of the set of allocated blocks it meets.
+    That set only grows within a submap, so one size is one set; a parked
+    stream's set stops growing after one cycle of templates, and each
+    template's carve is worked out about twice.  Without carving the walk
+    only counts the bands."""
 
     def __init__(self, traffic, sem: R.Semantics, device, dtype=None):
         self.traffic, self.sem, self.device = traffic, sem, device
@@ -184,20 +194,38 @@ class Reference:
 
     def voxels(self, steps: list) -> R.Voxels:
         first = self.traffic.position(steps[0])
-        mult: dict = {}
+        carving = self.sem.carve_steps > 0
+        band: dict = {}             # (template, position) -> its band
+        samples: dict = {}          # (template, position) -> carve samples
+        carved: dict = {}           # (template, position, size) -> carve
+        mult: dict = {}             # ("band" | "carve", key) -> multiplicity
+        allocated = torch.zeros(0, dtype=torch.int64, device=self.device)
         for i in steps:
             k = (i % len(self.traffic.templates),
                  tuple(self.traffic.position(i).tolist()))
-            mult[k] = mult.get(k, (i, 0))[0], mult.get(k, (i, 0))[1] + 1
-        parts = []
-        for (k, _), (i, m) in mult.items():
-            keys, sd = R.scan_samples(self.traffic.points(i),
-                                      self.traffic.position(i), first,
-                                      self.sem, self.device, self.dtype)
-            v = R.reduce_samples(keys, sd)
-            self.touched[k] = int(v.keys.shape[0])
-            parts.append((v, m))
-        return R.combine(parts)
+            if k not in band:
+                keys, sd = R.scan_samples(self.traffic.points(i),
+                                          self.traffic.position(i), first,
+                                          self.sem, self.device, self.dtype)
+                band[k] = R.reduce_samples(keys, sd)
+                self.touched[k[0]] = int(band[k].keys.shape[0])
+                if carving:
+                    allocated = torch.unique(torch.cat(
+                        [allocated, R.block_keys(band[k].keys)]))
+                    samples[k] = R.carve_samples(
+                        self.traffic.points(i), self.traffic.position(i),
+                        first, self.sem, self.device)
+            parts = [("band", k)]
+            if carving:
+                c = k + (int(allocated.shape[0]),)
+                if c not in carved:
+                    carved[c] = R.carve_voxels(*samples[k], allocated,
+                                               self.sem)
+                parts.append(("carve", c))
+            for p in parts:
+                mult[p] = mult.get(p, 0) + 1
+        return R.combine([(band[key] if kind == "band" else carved[key], m)
+                          for (kind, key), m in mult.items()])
 
 
 def judge(numbers: dict, limits: dict) -> bool:

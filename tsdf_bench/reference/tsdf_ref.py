@@ -24,6 +24,23 @@ Semantics, per insert of ``points`` scanned from ``position``:
 * signed distance ``clamp(n . (voxel * res - p), -trunc, trunc)``;
 * a voxel's value is the mean of its samples, its weight their count.
 
+Space carving (``MapConfig.carve_steps > 0``; ``core/carve.py``'s
+docstring and ``MapConfig``'s comments), after each insert's band:
+
+* every ``carve_subsample``-th row of the ingested cloud, in its input
+  order, is a ray from the scanner along the unit vector ``(p - position) /
+  |p - position|`` (f32, the norm as ``sqrt((dx dx + dy dy) + dz dz)``);
+* its sample ``i < carve_steps`` lies at ``t = (i + 0.5) * f32(stride *
+  res)`` and is valid while ``t < |p - position| - f32(trunc)``; it is
+  voxelized as the walk is, ``floor((position + u * t) * f32(1 / res))``,
+  each f32 operation rounded, and dropped outside the local extent;
+* erosion only: a sample counts only where its block (8 voxels a side)
+  holds a band sample of this submap, from an earlier insert or from this
+  one (the band goes in before its carve);
+* each counted sample is an observation of ``+trunc`` with weight
+  ``carve_weight``: it adds ``trunc * w`` to the voxel's sum, ``w`` to its
+  weight.  The check's weights are exact counts, so ``w`` must be 1.
+
 Departures from the program, each far below what ``compare.py`` judges:
 the normal fit and the signed distance are computed in f64 (the program
 uses f32, anchored at one point of the neighbourhood), and samples are
@@ -58,6 +75,18 @@ class Semantics:
     normal_max_depth: int = 3
     block_bits: int = 10
     packed_ingest: bool = False
+    max_points: int = 1 << 20
+    carve_steps: int = 0
+    carve_stride: float = 2.0
+    carve_subsample: int = 2
+    carve_weight: float = 1.0
+
+    def __post_init__(self):
+        if self.carve_steps > 0 and self.carve_weight != 1.0:
+            raise ValueError(
+                f"carve_weight {self.carve_weight}: the check compares "
+                f"weights as exact sample counts, so it judges carving "
+                f"only at carve_weight 1.0")
 
     @property
     def dda_steps(self) -> int:
@@ -229,11 +258,55 @@ def scan_samples(points, position, first_position, sem: Semantics,
     return pack_key(sv[ok]), sd[ok].to(torch.float64)
 
 
+def carve_samples(points, position, first_position, sem: Semantics,
+                  device="cpu"):
+    """One insert's free-space samples inside the local extent, before the
+    erosion rule: (voxel keys int64 (U,) ascending and unique, their sample
+    counts int64 (U,))."""
+    if len(points) > sem.max_points:
+        raise ValueError(f"{len(points)} points: the map carves each "
+                         f"chunk of max_points ({sem.max_points}) rows "
+                         f"after that chunk's band; one chunk is modelled")
+    pos = torch.as_tensor(np.asarray(position, np.float32), device=device)
+    p = ingest(torch.as_tensor(np.asarray(points, np.float32),
+                               device=device), pos, sem)
+    d = p[::sem.carve_subsample] - pos[None, :]                  # (R, 3)
+    r = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] +
+                   d[:, 2] * d[:, 2])
+    u = d / torch.clamp(r, min=1e-12)[:, None]
+    limit = r - np.float32(sem.sdf_trunc)
+    stride = np.float32(sem.carve_stride * sem.sdf_res)
+    recip = np.float32(1.0 / sem.sdf_res)
+    extent = (1 << sem.block_bits) * 8
+    org = torch.as_tensor(origin_voxel(first_position, sem), device=device)
+    keys = []
+    # 16 steps of every ray at a time, which bounds the memory
+    for i0 in range(0, sem.carve_steps, 16):
+        i = torch.arange(i0, min(i0 + 16, sem.carve_steps),
+                         dtype=torch.float32, device=device)
+        t = (i + 0.5) * stride                                  # (k,)
+        q = u[None, :, :] * t[:, None, None]
+        q = q + pos
+        vox = torch.floor(q * recip).to(torch.int64)            # (k, R, 3)
+        ok = (t[:, None] < limit[None, :]) & \
+            ((vox - org >= 0) & (vox - org < extent)).all(2)
+        keys.append(pack_key(vox[ok]))
+    return torch.unique(torch.cat(keys), return_counts=True)
+
+
+def block_keys(voxel_keys: torch.Tensor) -> torch.Tensor:
+    """The packed key of each voxel's block (8 voxels a side), as a
+    voxel-like key of the block's coordinates."""
+    return pack_key(unpack_key(voxel_keys) >> 3)
+
+
 @dataclasses.dataclass
 class Voxels:
     """Code-sorted voxels: keys int64 (V,), signed-distance sums f64 (V,),
     sample counts int64 (V,), sums of the samples' absolute signed
-    distances f64 (V,), and the number of inserts that touched each."""
+    distances f64 (V,), and the number of updates that touched each: an
+    insert's band, and an insert's carve (each one f32 product and one f32
+    add of the voxel's carve samples in the program)."""
     keys: torch.Tensor
     sums: torch.Tensor
     counts: torch.Tensor
@@ -274,6 +347,18 @@ def combine(parts: list) -> Voxels:
                   total("counts", torch.int64),
                   total("abs_sums", torch.float64),
                   total("inserts", torch.int64))
+
+
+def carve_voxels(keys: torch.Tensor, counts: torch.Tensor,
+                 allocated: torch.Tensor, sem: Semantics) -> Voxels:
+    """One insert's carve under the erosion rule: the samples of
+    :func:`carve_samples` whose block is in ``allocated`` (block keys),
+    each an observation of ``+trunc``."""
+    keep = torch.isin(block_keys(keys), allocated)
+    keys, counts = keys[keep], counts[keep]
+    sums = counts.to(torch.float64) * (sem.sdf_trunc * sem.carve_weight)
+    return Voxels(keys, sums, counts, sums.clone(),
+                  torch.ones_like(counts))
 
 
 def submap_groups(positions, sem: Semantics) -> list:

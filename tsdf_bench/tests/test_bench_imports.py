@@ -9,7 +9,7 @@ from tsdf_bench import run
 
 PROBE = r"""
 import sys
-from tsdf_bench import run, control
+from tsdf_bench import run, control, trial
 from tsdf_bench import check
 from tsdf_bench.metrics import (device_idle_pct, finalize_scan_ms,
     insert_call_ms, insert_roofline_pct, mc_ms, normals_roofline_pct,
