@@ -57,7 +57,9 @@ class MapConfig:
     # submap_distance of travel), not the whole mission: 64k blocks =
     # 33.5M voxels = 256 MiB of pool.  Overflow is counted, never silent.
     block_capacity: int = 1 << 16
-    # max distinct blocks touched by one insert
+    # max distinct blocks touched by one insert, and by one carve: a
+    # carve's blocks past it are lost (the lookup never runs for them) and
+    # counted in touched_overflow, as an insert's are
     touched_capacity: int = 1 << 14
     # local block-coordinate extent: blocks per axis = 2**block_bits,
     # centred on the submap origin.  10 bits -> 1024 blocks -> 409.6 m at

@@ -9,8 +9,8 @@ scanner and the truncation band of a return is an observation of
 * strided: ``carve_stride`` voxels between the free-space samples of a ray
   and ``carve_subsample`` rows of the cloud between carved rays;
 * erosion-only: a sample updates a voxel of an already allocated block and
-  is dropped (counted) elsewhere, so the pool's pressure is the same with
-  carving on or off;
+  is dropped (counted in ``n_carve_dropped``) elsewhere, so the pool's
+  pressure is the same with carving on or off;
 * stopped ``sdf_trunc`` short of the return, so a ray never dilutes its own
   band;
 * on the active map only: rotated-out submaps are immutable DAGs.
@@ -29,6 +29,15 @@ map's device, in the shape of the ``seg`` insert (core/integrate.py):
    directory (a lookup, never an allocation), and one ``index_add_`` per
    pool plane of ``(count * trunc * w_c, count * w_c)``.
 
+The lookup covers the first ``touched_capacity`` blocks of the sorted
+entries, as an insert touches at most that many.  The blocks past them are
+lost data, not the erosion rule's drops: their lookup never ran.  They are
+counted as an insert's are, in the state's lossy ``touched_overflow``
+(which ``TSDFMap`` reads at its overflow check, at a rotation's drain and
+in ``stats()``), and their samples are in none of the metrics:
+``n_carve_dropped`` counts only the samples that the erosion rule drops by
+design (their block is not allocated).
+
 Every entry's index is unique, so each pool element gets at most one addend
 and the result does not depend on the order of the adds.  The counters are
 integers (the JAX package sums them in f32, inexact beyond 2^24 samples),
@@ -39,6 +48,8 @@ and the buckets do not change the result.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -109,9 +120,11 @@ def carve_sample_keys(px, py, pz, n_points, position, origin_blocks,
 def carve_entries(points, n_points, position, origin_blocks,
                   config: MapConfig):
     """One cloud's free-space samples as one entry per voxel (steps 1-2
-    of the module docstring).  Returns ``(e_b, e_o, e_c, n_valid)``: an
-    ascending block-key prefix with INT32_MAX beyond, the voxels' offsets,
-    their sample counts and the number of valid samples."""
+    of the module docstring).  Returns ``(e_b, e_o, e_c, n_valid, e_end)``:
+    an ascending block-key prefix with INT32_MAX beyond, the voxels'
+    offsets, their sample counts, the number of valid samples, and each
+    entry's last sample in the sorted samples (so the entries before
+    entry ``j`` hold ``e_end[j - 1] + 1`` samples)."""
     dev = points.device
     bkey, okey = carve_sample_keys(points[:, 0], points[:, 1], points[:, 2],
                                    n_points, position, origin_blocks, config)
@@ -135,28 +148,44 @@ def carve_entries(points, n_points, position, origin_blocks,
     e_b = torch.where(ev, sb[at], INT32_MAX)
     e_o = torch.where(ev, so[at], 0)
     e_c = torch.where(ev, end_pos - prev_pos, 0)
-    return e_b, e_o, e_c, n_valid
+    return e_b, e_o, e_c, n_valid, end_pos
 
 
 def lookup_blocks(state: ActiveMapState, e_b, config: MapConfig):
     """The entries' touched blocks looked up in the sorted directory
-    (LOOKUP ONLY: the erosion-only rule allocates nothing).  Returns
-    ``(flags, tb_keys, found, slots)`` per touched block: ``found`` is
-    whether the state holds it, ``slots`` its pool row where found."""
+    (LOOKUP ONLY: the erosion-only rule allocates nothing), the first
+    ``touched_capacity`` of them.  Returns ``(flags, tb_keys, found, slots,
+    first_lost, overflow)``: per touched block, ``found`` is whether the
+    state holds it and ``slots`` its pool row where found; ``first_lost``
+    (i32[]) is the first entry of the blocks past the capacity, the
+    stream's length where there are none, and ``overflow`` (i32[]) the
+    number of those blocks."""
     cb = config.block_capacity
     t_cap = min(config.touched_capacity, e_b.shape[0])
-    flags, _, _, _, tvalid, tb_keys = integrate._touched_blocks(e_b, t_cap)
+    flags, starts, _, overflow, tvalid, tb_keys = integrate._touched_blocks(
+        e_b, t_cap)
     pos = torch.searchsorted(state.dir_keys, tb_keys).to(torch.int32)
     pos_c = torch.clamp(pos, max=cb - 1)
     found = (state.dir_keys[pos_c] == tb_keys) & tvalid
-    return flags, tb_keys, found, state.dir_slots[pos_c]
+    return (flags, tb_keys, found, state.dir_slots[pos_c], starts[t_cap],
+            overflow)
+
+
+def lost_samples(e_end, n_valid, first_lost):
+    """The samples of the entries from ``first_lost`` on (the blocks past
+    the touched capacity, which no lookup saw), as an i32[] on the device:
+    read from the entries' last samples, with no pass over the stream."""
+    s = e_end.shape[0]
+    before = e_end[torch.clamp(first_lost - 1, 0, s - 1).reshape(1)] + 1
+    return torch.where(first_lost < s, n_valid - before.reshape(()), 0)
 
 
 def apply_entries(state: ActiveMapState, e_b, e_o, e_c, n_valid, flags,
                   apply, slots, config: MapConfig):
     """Add the entries of the touched blocks where ``apply`` holds into
     the pool, in place (step 3); the others are dropped and counted.
-    Returns ``(state, metrics)`` as :func:`carve_step_impl`."""
+    Returns ``(state, metrics)`` as :func:`carve_step_impl`, but with the
+    samples past the touched capacity in ``n_carve_dropped``."""
     reserved_row = config.block_capacity - 1
     t_cap = apply.shape[0]
     s = e_b.shape[0]
@@ -191,14 +220,22 @@ def carve_step_impl(state: ActiveMapState, points, n_points, position,
     ``carve_subsample``-th row spawns a carve ray.  Returns ``(new_state,
     metrics)`` with int32 ``n_carve_samples`` (samples that hit allocated
     blocks), ``n_carved_voxels`` (distinct voxels updated) and
-    ``n_carve_dropped`` (samples in unallocated space or beyond
-    ``touched_capacity`` blocks: dropped by design, not data loss).
+    ``n_carve_dropped`` (samples in unallocated space: dropped by the
+    erosion rule, by design, not data loss).  The blocks past
+    ``touched_capacity`` are data loss: ``new_state.touched_overflow``
+    counts them, on the device, and their samples are in none of the
+    metrics.
     """
-    e_b, e_o, e_c, n_valid = carve_entries(points, n_points, position,
-                                           state.origin_blocks, config)
-    flags, _, found, slots = lookup_blocks(state, e_b, config)
-    return apply_entries(state, e_b, e_o, e_c, n_valid, flags, found, slots,
-                         config)
+    e_b, e_o, e_c, n_valid, e_end = carve_entries(
+        points, n_points, position, state.origin_blocks, config)
+    flags, _, found, slots, first_lost, overflow = lookup_blocks(state, e_b,
+                                                                 config)
+    state, metrics = apply_entries(state, e_b, e_o, e_c, n_valid, flags,
+                                   found, slots, config)
+    metrics["n_carve_dropped"] = (metrics["n_carve_dropped"] -
+                                  lost_samples(e_end, n_valid, first_lost))
+    return dataclasses.replace(
+        state, touched_overflow=state.touched_overflow + overflow), metrics
 
 
 def carve_step(state: ActiveMapState, points, n_points, position,

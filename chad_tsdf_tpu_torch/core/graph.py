@@ -22,8 +22,14 @@ count as an i32[] tensor):
    ``fused`` the sample grids and K4 first — sorted, then the sort-based
    ``update_pool`` through K5) runs only where the count is positive —
    ``lax.cond`` itself, with no host read;
-4. the carve (``core/carve.py``), when the map carves;
-5. the metrics into a static i32 vector.
+4. the metrics into a static i32 vector.
+
+When the map carves, the carve (``core/carve.py``) is a second graph,
+captured right after the first and replayed right after it
+(:meth:`InsertGraph.replay_carve`): it reads the first graph's padded
+(and, under packed ingest, unpacked) points, which stay where that
+capture put them, and writes its metrics into the same vector.  Apart,
+its device time can be bracketed by events between the two replays.
 
 ``TSDFMap.insert`` keeps one per (dispatched config, point bucket) on the
 map's own active state: a scan is one host-to-device copy of its points
@@ -40,8 +46,10 @@ The warm insert is a real insert: its result stays.  A capture that
 fails raises; nothing falls back to the eager insert.  The stage hook of
 ``profile_insert`` is off while capturing.  ``kernels.LAUNCHES`` counts
 the launches of the warm insert and the capture, never a replay:
-``launches`` holds what one replay launches outside the IF node and
-``body_launches`` what its body launches when the count is positive.
+``launches`` holds what one replay (both graphs) launches outside the IF
+node and ``body_launches`` what its body launches when the count is
+positive; ``replays`` and ``timing.COUNTS["graph_replays"]`` count
+inserts replayed, the carve's graph with its insert's.
 """
 
 from __future__ import annotations
@@ -73,9 +81,10 @@ def _launched(before: dict) -> dict:
 class InsertGraph:
     """One insert of a ``bucket``-point cloud on ``state`` (module
     docstring); ``carve_config`` carves after it (the map's config, as
-    ``TSDFMap.insert`` carves), None does not.  ``nbytes`` is what the
-    graph holds on the device: ``owned_bytes`` (a state copy it owns), its
-    buffers and, once captured, the memory its capture reserved."""
+    ``TSDFMap.insert`` carves) in a graph of its own, ``carve_graph``;
+    None does not.  ``nbytes`` is what the graphs hold on the device:
+    ``owned_bytes`` (a state copy it owns), their buffers and, once
+    captured, the memory their captures reserved."""
 
     def __init__(self, state: ActiveMapState, config: MapConfig,
                  bucket: int, packed: bool = False,
@@ -93,6 +102,8 @@ class InsertGraph:
         self.keys = INSERT_KEYS + (CARVE_KEYS if carve_config else ())
         self.out = torch.zeros(len(self.keys), dtype=torch.int32, device=dev)
         self.graph = None
+        self.carve_graph = None
+        self._pts = None              # the carve's input: the padded points
         self.launches: dict = {}
         self.body_launches: dict = {}
         self.replays = 0
@@ -150,9 +161,16 @@ class InsertGraph:
             else:
                 conditional.if_positive(tile_ovf, fallback, self._pool)
         if self.carve_config is not None:
-            _, cm = carve.carve_step(st, pts, self.n_points, self.position,
-                                     self.carve_config)
-            self.out[n_ins:].copy_(torch.stack([cm[k] for k in CARVE_KEYS]))
+            self._pts = pts
+            if eager:
+                self._carve()
+
+    def _carve(self) -> None:
+        new, cm = carve.carve_step(self.state, self._pts, self.n_points,
+                                   self.position, self.carve_config)
+        integrate.write_back(self.state, new)
+        self.out[len(INSERT_KEYS):].copy_(
+            torch.stack([cm[k] for k in CARVE_KEYS]))
 
     def metrics(self) -> dict:
         """The last insert's metrics as device scalars of a copy of the
@@ -167,7 +185,8 @@ class InsertGraph:
         return self.metrics()
 
     def capture(self) -> None:
-        """Capture the insert; raises if the capture fails."""
+        """Capture the insert, then its carve when it carves; raises if a
+        capture fails."""
         dev = self.state.device
         cuda = dev.type == "cuda"
         if cuda:
@@ -181,6 +200,11 @@ class InsertGraph:
         try:
             with torch.cuda.graph(graph):
                 self._step(eager=False)
+            if self.carve_config is not None:
+                carve_graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(carve_graph):
+                    self._carve()
+                self.carve_graph = carve_graph
         finally:
             integrate.STAGE_HOOK = hook
         timing.count("graph_captures")
@@ -196,6 +220,12 @@ class InsertGraph:
             self._workspace = accumulate._WORKSPACE.get(dev)
 
     def replay(self) -> None:
+        """Replay the insert (its carve, if any, is :meth:`replay_carve`,
+        which must follow)."""
         self.graph.replay()
         self.replays += 1
         timing.count("graph_replays")
+
+    def replay_carve(self) -> None:
+        """Replay the carve of the insert just replayed."""
+        self.carve_graph.replay()

@@ -26,9 +26,11 @@ Space carving (``carve_steps > 0``, core/carve.py) follows each insert.
 
 On the card each chunk of an insert is one CUDA graph replay
 (``core/graph.py`` ``InsertGraph``: the upload into the graph's input
-buffers, then the insert, its fallback as an IF node decided on
-the device, and the carve), as the JAX package issues one executable per
-chunk.  The graphs are the map's own, cached by (dispatched config, point
+buffers, then the insert and its fallback as an IF node decided on
+the device), as the JAX package issues one executable per chunk; a
+carving map replays the carve's own graph right after (the span
+``chad.insert.carve``, its device time bracketed by events).  The graphs
+are the map's own, cached by (dispatched config, point
 bucket, packed ingest, carving) and bound to the map's active state, which
 a rotation copies out for its stub and resets in place.  Replacing the
 active state from outside (the ``state`` setter, a checkpoint load) drops
@@ -194,6 +196,8 @@ class TSDFMap:
         # insert_steps_scan's) and the active state they are bound to
         self._graphs = integrate.GraphCache(integrate.MAX_GRAPH_BYTES)
         self._gstate = None
+        # the device time of the map's carves
+        self._carve_clock = timing.CarveClock(self.device)
 
     # ------------------------------------------------------------------
     @property
@@ -229,10 +233,15 @@ class TSDFMap:
         self._deferred = None
         state = integrate.settle(tail, self._state, metrics._data)
         if carve_args is not None:
-            state, cmetrics = carve.carve_step(state, *carve_args,
-                                               self.config)
+            state, cmetrics = self._carve(state, carve_args)
             metrics.add(cmetrics)
         self._state = state
+
+    def _carve(self, state, carve_args):
+        """``carve.carve_step`` eagerly, timed by the map's carve clock
+        (the host clock on the CPU)."""
+        with span("chad.insert.carve"), self._carve_clock:
+            return carve.carve_step(state, *carve_args, self.config)
 
     @property
     def n_submaps(self) -> int:
@@ -256,11 +265,16 @@ class TSDFMap:
 
         The call is the span ``chad.insert`` (``utils/timing.py``; its
         argument the map's insert index), split into ``.rotate``,
-        ``.dispatch``, ``.load``, ``.replay`` or ``.step``, ``.capture``
-        and ``.overflow_check``.
+        ``.dispatch``, ``.load``, ``.replay`` or ``.step``, ``.carve``,
+        ``.capture`` and ``.overflow_check``.  A carving map's inserts
+        are counted in ``carve_inserts`` and its carves' device time in
+        ``carve_device_us`` / ``carve_timed`` (``timing.CarveClock``,
+        read without a wait).
         """
         with span("chad.insert", getattr(self, "_n_inserts", 0)) as sp:
             timing.count("inserts")
+            if self.config.carve_steps > 0:
+                timing.count("carve_inserts")
             metrics = self._insert(points, position)
         if self.config.profile:
             metrics["wall_ms"] = sp.ms
@@ -335,8 +349,7 @@ class TSDFMap:
             if tail is not None:
                 self._deferred = (tail, carve_args, metrics_acc)
             elif carve_args is not None:
-                self._state, cmetrics = carve.carve_step(
-                    self._state, *carve_args, self.config)
+                self._state, cmetrics = self._carve(self._state, carve_args)
                 metrics_acc.add(cmetrics)
         if self.config.profile:
             self._settle()
@@ -356,7 +369,9 @@ class TSDFMap:
                       position: np.ndarray) -> dict:
         """One chunk (unpadded) as one replay of the map's graph for
         (``cfg``, ``bucket``, packed ingest, carving), captured after an
-        eager first insert when new.  Returns the chunk's metrics."""
+        eager first insert when new, and in a carving map one replay of
+        its carve's graph right after, timed by the map's carve clock.
+        Returns the chunk's metrics."""
         carving = self.config.carve_steps > 0
         key = (cfg, bucket, cfg.packed_ingest, carving)
         g = self._graphs.get(key)
@@ -365,7 +380,11 @@ class TSDFMap:
                 g.load(chunk, position, len(chunk))
             with span("chad.insert.replay"):
                 g.replay()
-                return g.metrics()
+                if not carving:
+                    return g.metrics()
+            with span("chad.insert.carve"), self._carve_clock:
+                g.replay_carve()
+            return g.metrics()
         if self._gstate is None:
             self._gstate = self._state
         g = graph.InsertGraph(self._gstate, cfg, bucket, cfg.packed_ingest,

@@ -400,7 +400,11 @@ def make_sharded_carve(config: MapConfig, mesh: ShardMesh):
     shard holds the block.  Carving is additive, so the result equals the
     single-device carve of the merged map.  (The JAX package applies it on
     every holder, twice for a block its owner and a deferrer both hold,
-    and its dropped count can go negative; the port repairs that.)
+    and its dropped count can go negative; the port repairs that.)  The
+    blocks past the touched capacity are lost, as on one device: every
+    shard ranks the same entries against the same capacity, and shard 0
+    counts them in its ``touched_overflow``, their samples left out
+    of ``n_carve_dropped``.
 
     Returns ``step(state_stack, points, n_points, position, bounds) ->
     (state_stack, metrics)``: ``points`` the whole (padded) host scan, f32
@@ -427,7 +431,7 @@ def make_sharded_carve(config: MapConfig, mesh: ShardMesh):
         out, hits = [], []
         for i, state in enumerate(state_stack):
             dev = state.device
-            flags, tb_keys, found, slots = looked[i]
+            flags, tb_keys, found, slots, _, _ = looked[i]
             h = holders.to(dev)
             b = torch.from_numpy(np.asarray(bounds, np.int32)).to(dev)
             owner = torch.clamp(
@@ -437,16 +441,22 @@ def make_sharded_carve(config: MapConfig, mesh: ShardMesh):
             first_holder = torch.argmax(h, dim=0)
             applier = torch.where(owner_holds, owner, first_holder)
             apply = found & (applier == mesh.first + i)
-            e_b, e_o, e_c, n_valid = entries[dev]
+            e_b, e_o, e_c, n_valid, _ = entries[dev]
             state, m = carve_mod.apply_entries(
                 state, e_b, e_o, e_c, n_valid, flags, apply, slots, config)
             out.append(state)
             hits.append(torch.stack([m["n_carve_samples"],
                                      m["n_carved_voxels"]]))
         tot = mesh.psum(hits)
-        n_valid = entries[state_stack[0].device][3].to(tot.device)
+        _, _, _, n_valid, e_end = entries[state_stack[0].device]
+        first_lost, overflow = looked[0][4:]
+        lost = carve_mod.lost_samples(e_end, n_valid, first_lost)
+        if mesh.first == 0:
+            out[0] = dataclasses.replace(
+                out[0], touched_overflow=out[0].touched_overflow + overflow)
         return out, {"n_carve_samples": tot[0], "n_carved_voxels": tot[1],
-                     "n_carve_dropped": n_valid - tot[0]}
+                     "n_carve_dropped": (n_valid - lost).to(tot.device)
+                     - tot[0]}
 
     return step
 

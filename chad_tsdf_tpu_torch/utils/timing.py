@@ -22,6 +22,7 @@ with the process-wide counters :data:`COUNTS` (:func:`count`,
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -38,12 +39,17 @@ from torch.autograd import profiler as _autograd_profiler
 # (those an insert had to run because too many rotations were pending),
 # ``h2d_bytes`` (the clouds, positions and point counts sent to the
 # device), ``d2h_bytes`` (counters, compacted clusters and meshes read
-# back) and ``host_syncs`` (every place the host waits for the device: a
+# back), ``host_syncs`` (every place the host waits for the device: a
 # tensor read, an event or a stream synchronisation; counted at the same
-# sites on a CPU map).
+# sites on a CPU map), ``carve_inserts`` (inserts of a carving map),
+# ``carve_device_us`` (the device time of the carves timed so far, in
+# whole microseconds: :class:`CarveClock`) and ``carve_timed`` (those
+# carves).
 COUNTS = dict.fromkeys(("inserts", "graph_replays", "graph_captures",
                         "rotations", "finishes", "finishes_in_insert",
-                        "h2d_bytes", "d2h_bytes", "host_syncs"), 0)
+                        "h2d_bytes", "d2h_bytes", "host_syncs",
+                        "carve_inserts", "carve_device_us", "carve_timed"),
+                       0)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -166,6 +172,67 @@ class span:
             self._range = None
             _PROFILED.spans.append((self.name, self._t0, t1))
             _PROFILED.counts1 = counts()
+        return False
+
+
+# the event pairs a CarveClock keeps in flight
+CLOCK_RING = 64
+
+
+class CarveClock:
+    """The device time of a map's carves, summed into :data:`COUNTS` with
+    no host wait: ``with clock:`` around a carve's launches;
+    ``carve_device_us`` grows by its microseconds (rounded to whole ones),
+    ``carve_timed`` by one, once the time is known.
+
+    On CUDA the carve is bracketed by a pair of timing events, recorded by
+    the host on the current stream, from a ring of :data:`CLOCK_RING`
+    pairs.  A pair is folded in when its end event's ``query()`` says the
+    device has passed it, which is checked (oldest first, never waited
+    for) each time a carve starts and at :meth:`fold`.  A carve that finds
+    every pair of the ring still pending goes untimed.  On the CPU the
+    carve is timed by the host clock and folded in at once."""
+
+    __slots__ = ("cuda", "_pending", "_free", "_made", "_pair", "_t0")
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self._pending: collections.deque = collections.deque()
+        self._free: list = []
+        self._made = 0
+        self._pair = None
+
+    def fold(self) -> None:
+        """Add the pairs the device has passed to the counters."""
+        while self._pending and self._pending[0][1].query():
+            a, b = self._pending.popleft()
+            COUNTS["carve_device_us"] += round(a.elapsed_time(b) * 1e3)
+            COUNTS["carve_timed"] += 1
+            self._free.append((a, b))
+
+    def __enter__(self):
+        if not self.cuda:
+            self._t0 = time.perf_counter()
+            return self
+        self.fold()
+        if not self._free and self._made < CLOCK_RING:
+            self._free.append((torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+            self._made += 1
+        self._pair = self._free.pop() if self._free else None
+        if self._pair is not None:
+            self._pair[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if not self.cuda:
+            COUNTS["carve_device_us"] += round(
+                (time.perf_counter() - self._t0) * 1e6)
+            COUNTS["carve_timed"] += 1
+        elif self._pair is not None:
+            self._pair[1].record()
+            self._pending.append(self._pair)
+            self._pair = None
         return False
 
 

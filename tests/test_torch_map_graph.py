@@ -79,6 +79,8 @@ def stand_in(monkeypatch):
             getattr(self.state, f).copy_(getattr(saved, f))
         self.out.copy_(out)
         self.graph.replay = lambda: self._step(eager=False)
+        if self.carve_graph is not None:
+            self.carve_graph.replay = self._carve
 
     monkeypatch.setattr(graph.InsertGraph, "capture", stand_in_capture)
     monkeypatch.setattr(integrate, "_GRAPHS",
