@@ -15,19 +15,28 @@ scanner and the truncation band of a return is an observation of
   band;
 * on the active map only: rotated-out submaps are immutable DAGs.
 
-The JAX package leaves carving to XLA; here it is plain torch ops on the
-map's device, in the shape of the ``seg`` insert (core/integrate.py):
+The JAX package leaves carving to XLA.  Here it runs in three stages, in
+the shape of the ``seg`` insert (core/integrate.py):
 
-1. per carve ray, ``carve_steps`` strided sample positions from the scanner
-   outward (valid while ``t < range - trunc``), voxelized with the insert
-   path's ``floor(p * f32(1 / res))``, every f32 step a separate operation;
-2. one sort of the int64 key ``bkey << 32 | okey`` (the JAX package's
-   two-key sort, INT32_MAX last); the payload is the constant ``+trunc``,
-   so a voxel's evidence is its run length, an integer;
-3. a fixed-capacity compaction (cumulative rank, no host read) to one entry
-   per voxel, a ``searchsorted`` of each entry's block in the sorted
-   directory (a lookup, never an allocation), and one ``index_add_`` per
-   pool plane of ``(count * trunc * w_c, count * w_c)``.
+1. :func:`carve_keys`: per carve ray, ``carve_steps`` strided sample
+   positions from the scanner outward (valid while ``t < range - trunc``),
+   voxelized with the insert path's ``floor(p * f32(1 / res))``, every f32
+   step a separate operation, as the int64 key ``bkey << 32 | okey``;
+2. one sort of the keys (the JAX package's two-key sort, INT32_MAX last);
+   the payload is the constant ``+trunc``, so a voxel's evidence is its run
+   length, an integer;
+3. :func:`carve_apply`: one entry per voxel, each entry's block looked up
+   in the sorted directory (a lookup, never an allocation), and each found
+   voxel's ``(count * trunc * w_c, count * w_c)`` added to the pool.
+
+On CUDA tensors steps 1 and 3 are hand-written kernels
+(``ops/carve_kernels.py``, ``csrc/carve.cu``); on CPU tensors they are the
+plain torch ops of :func:`carve_keys_plain` and :func:`carve_apply_plain`:
+a fixed-capacity compaction (cumulative rank, no host read), a
+``searchsorted`` per touched block and one ``index_add_`` per pool plane.
+The two routes give the same pool and counters bit for bit.  The sharded
+carve (``parallel/sharded.py``) merges shards between the plain stages
+(:func:`carve_entries`, :func:`lookup_blocks`, :func:`apply_entries`).
 
 The lookup covers the first ``touched_capacity`` blocks of the sorted
 entries, as an insert touches at most that many.  The blocks past them are
@@ -39,7 +48,8 @@ in ``stats()``), and their samples are in none of the metrics:
 design (their block is not allocated).
 
 Every entry's index is unique, so each pool element gets at most one addend
-and the result does not depend on the order of the adds.  The counters are
+and the result does not depend on the order of the adds (the kernel adds
+without atomics for that reason).  The counters are
 integers (the JAX package sums them in f32, inexact beyond 2^24 samples),
 and the work runs at the full capacity ``carve_steps * ceil(N /
 carve_subsample)``: the JAX package's entry-capacity buckets choose on the
@@ -55,7 +65,7 @@ import numpy as np
 import torch
 
 from ..config import MapConfig
-from ..ops import dda, morton, segops
+from ..ops import carve_kernels, dda, morton, segops
 from . import integrate
 from .state import INT32_MAX, ActiveMapState
 
@@ -117,24 +127,47 @@ def carve_sample_keys(px, py, pz, n_points, position, origin_blocks,
     return bkey.reshape(-1), okey.reshape(-1)
 
 
-def carve_entries(points, n_points, position, origin_blocks,
-                  config: MapConfig):
-    """One cloud's free-space samples as one entry per voxel (steps 1-2
-    of the module docstring).  Returns ``(e_b, e_o, e_c, n_valid, e_end)``:
-    an ascending block-key prefix with INT32_MAX beyond, the voxels'
-    offsets, their sample counts, the number of valid samples, and each
-    entry's last sample in the sorted samples (so the entries before
-    entry ``j`` hold ``e_end[j - 1] + 1`` samples)."""
-    dev = points.device
+def carve_keys_plain(points, n_points, position, origin_blocks,
+                     config: MapConfig):
+    """Plain :func:`carve_keys`: :func:`carve_sample_keys` as one int64
+    key a slot, and the count of valid samples."""
     bkey, okey = carve_sample_keys(points[:, 0], points[:, 1], points[:, 2],
                                    n_points, position, origin_blocks, config)
-    s = bkey.shape[0]
-    key = torch.sort((bkey.to(torch.int64) << 32) |
-                     okey.to(torch.int64)).values
+    key = (bkey.to(torch.int64) << 32) | okey.to(torch.int64)
+    return key, (bkey != INT32_MAX).sum(dtype=torch.int32)
+
+
+def carve_keys(points, n_points, position, origin_blocks,
+               config: MapConfig):
+    """Step 1: the free-space sample keys of one padded cloud, ``(key
+    i64[carve_steps * ceil(N / carve_subsample)], n_valid i32[])``, laid
+    out as :func:`carve_sample_keys`; the kernel on CUDA tensors."""
+    if points.device.type == "cpu":
+        return carve_keys_plain(points, n_points, position, origin_blocks,
+                                config)
+    if not isinstance(n_points, torch.Tensor):
+        n_points = torch.full((), int(n_points), dtype=torch.int32,
+                              device=points.device)
+    return carve_kernels.carve_keys(
+        points, n_points, position, origin_blocks, k=config.carve_steps,
+        sub=config.carve_subsample,
+        step_m=float(np.float32(config.carve_stride * config.sdf_res)),
+        res_recip=dda.res_recip_f32(config.sdf_res),
+        trunc=float(np.float32(config.sdf_trunc)),
+        extent=config.blocks_per_axis * 8)
+
+
+def sorted_entries(key):
+    """The sorted sample keys as one entry per voxel: ``(e_b, e_o, e_c,
+    e_end)``, an ascending block-key prefix with INT32_MAX beyond, the
+    voxels' offsets, their sample counts, and each entry's last sample in
+    the sorted samples (so the entries before entry ``j`` hold ``e_end[j -
+    1] + 1`` samples)."""
+    s = key.shape[0]
+    dev = key.device
     sb = (key >> 32).to(torch.int32)
     so = (key & 0x1FF).to(torch.int32)
     valid = sb != INT32_MAX
-    n_valid = valid.sum(dtype=torch.int32)
 
     # valid samples are a prefix: a voxel's count is the distance from the
     # previous voxel's last sample to its own
@@ -148,7 +181,18 @@ def carve_entries(points, n_points, position, origin_blocks,
     e_b = torch.where(ev, sb[at], INT32_MAX)
     e_o = torch.where(ev, so[at], 0)
     e_c = torch.where(ev, end_pos - prev_pos, 0)
-    return e_b, e_o, e_c, n_valid, end_pos
+    return e_b, e_o, e_c, end_pos
+
+
+def carve_entries(points, n_points, position, origin_blocks,
+                  config: MapConfig):
+    """One cloud's free-space samples as one entry per voxel (steps 1-2
+    of the module docstring, plain).  Returns ``(e_b, e_o, e_c, n_valid,
+    e_end)``: :func:`sorted_entries` and the number of valid samples."""
+    key, n_valid = carve_keys_plain(points, n_points, position,
+                                    origin_blocks, config)
+    e_b, e_o, e_c, e_end = sorted_entries(torch.sort(key).values)
+    return e_b, e_o, e_c, n_valid, e_end
 
 
 def lookup_blocks(state: ActiveMapState, e_b, config: MapConfig):
@@ -212,6 +256,48 @@ def apply_entries(state: ActiveMapState, e_b, e_o, e_c, n_valid, flags,
     return state, metrics
 
 
+def carve_apply_plain(state: ActiveMapState, key, n_valid,
+                      config: MapConfig):
+    """Plain :func:`carve_apply`: :func:`sorted_entries`,
+    :func:`lookup_blocks`, :func:`apply_entries` and :func:`lost_samples`;
+    the same ``(metrics, overflow)``."""
+    e_b, e_o, e_c, e_end = sorted_entries(key)
+    flags, _, found, slots, first_lost, overflow = lookup_blocks(state, e_b,
+                                                                 config)
+    _, metrics = apply_entries(state, e_b, e_o, e_c, n_valid, flags, found,
+                               slots, config)
+    metrics["n_carve_dropped"] = (metrics["n_carve_dropped"] -
+                                  lost_samples(e_end, n_valid, first_lost))
+    return metrics, overflow
+
+
+def carve_apply(state: ActiveMapState, key, n_valid, config: MapConfig):
+    """Step 3: add the sorted keys' evidence into ``state``'s pool, in
+    place.  Returns ``(metrics, overflow)``: the three metrics of
+    :func:`carve_step_impl` and the number of blocks past
+    ``touched_capacity`` (i32[]); the kernels on CUDA tensors."""
+    if key.device.type == "cpu":
+        return carve_apply_plain(state, key, n_valid, config)
+    c = carve_kernels.carve_apply(
+        key, n_valid, state.dir_keys, state.dir_slots, state.pool_sd,
+        state.pool_w,
+        t_cap=min(config.touched_capacity, key.shape[0]),
+        sd_per=float(np.float32(config.sdf_trunc * config.carve_weight)),
+        w_per=float(np.float32(config.carve_weight)))
+    return {"n_carve_samples": c[0], "n_carved_voxels": c[1],
+            "n_carve_dropped": c[2]}, c[3]
+
+
+def _carve_with(keys_fn, apply_fn, state, points, n_points, position,
+                config):
+    key, n_valid = keys_fn(points, n_points, position, state.origin_blocks,
+                           config)
+    metrics, overflow = apply_fn(state, torch.sort(key).values, n_valid,
+                                 config)
+    return dataclasses.replace(
+        state, touched_overflow=state.touched_overflow + overflow), metrics
+
+
 def carve_step_impl(state: ActiveMapState, points, n_points, position,
                     config: MapConfig):
     """Accumulate one cloud's free-space evidence into the pool, in place.
@@ -226,16 +312,16 @@ def carve_step_impl(state: ActiveMapState, points, n_points, position,
     counts them, on the device, and their samples are in none of the
     metrics.
     """
-    e_b, e_o, e_c, n_valid, e_end = carve_entries(
-        points, n_points, position, state.origin_blocks, config)
-    flags, _, found, slots, first_lost, overflow = lookup_blocks(state, e_b,
-                                                                 config)
-    state, metrics = apply_entries(state, e_b, e_o, e_c, n_valid, flags,
-                                   found, slots, config)
-    metrics["n_carve_dropped"] = (metrics["n_carve_dropped"] -
-                                  lost_samples(e_end, n_valid, first_lost))
-    return dataclasses.replace(
-        state, touched_overflow=state.touched_overflow + overflow), metrics
+    return _carve_with(carve_keys, carve_apply, state, points, n_points,
+                       position, config)
+
+
+def carve_step_plain(state: ActiveMapState, points, n_points, position,
+                     config: MapConfig):
+    """:func:`carve_step_impl` through the plain stages on any device: what
+    the kernels are held against on the card."""
+    return _carve_with(carve_keys_plain, carve_apply_plain, state, points,
+                       n_points, position, config)
 
 
 def carve_step(state: ActiveMapState, points, n_points, position,

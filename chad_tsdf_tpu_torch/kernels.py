@@ -26,7 +26,7 @@ Kernels and the TPU kernels they replace (``chad_tsdf_tpu/ops/...``):
 * M2 ``micro_tile_accum``     <- scripts/micro_tile_accum.py:run
 * M3 ``micro_mxu8``           <- scripts/micro_mxu8.py:build
 
-and two kernels of the port's own, with no Pallas kernel behind them:
+and kernels of the port's own, with no Pallas kernel behind them:
 
 * ``set_conditional``, the one-thread kernel that sets a CUDA graph's IF
   node from a device count (``ops/conditional.py``), the JAX package's
@@ -35,7 +35,11 @@ and two kernels of the port's own, with no Pallas kernel behind them:
 * ``seg_samples``, the ``seg`` insert's ray samples as int64 sort keys in
   one launch (``ops/seg_samples.py``): K1's DDA, signed distances and keys
   where the JAX package leaves the same work to XLA
-  (``core/integrate.py`` ``sparse_seg_entry_stream``).
+  (``core/integrate.py`` ``sparse_seg_entry_stream``);
+* ``carve_keys`` and ``carve_apply``, space carving's free-space sample
+  keys and its pool update from the sorted keys (``ops/carve_kernels.py``):
+  the work that the JAX package leaves to XLA (``core/carve.py``) on
+  either side of the carve's one sort.
 """
 
 from __future__ import annotations
@@ -77,6 +81,9 @@ _SIGNATURES = {
     "micro_mxu8": [_P] * 4 + [_I] * 4 + [_P] * 3,
     "set_conditional": [_P] * 2,
     "seg_samples": [_P] * 9 + [_I] * 2 + [_F] * 3 + [_I] + [_F] + [_P] * 2,
+    "carve_keys": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_I] + [_P] * 2,
+    "carve_apply": [_P] + [_I] + [_P] * 3 + [_I] * 2 + [_F] * 2 +
+                   [_P] * 3 + [_I] + [_P],
 }
 # C entry points that launch no kernel (not counted), without the stream
 _HOST_SIGNATURES = {

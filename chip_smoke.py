@@ -53,6 +53,13 @@ runs, failing with a non-zero exit on the first error:
    ray leaving it and a zero-length ray: keys (in order and sorted),
    ``n_valid`` and the sample overflow bit-equal to its plain version, a
    second launch bit-equal, timed beside the plain version with its bound;
+   the carve's two kernels (``ops/carve_kernels.py``) on a parked sweep's
+   carve into the map of another sweep from the same spot
+   (``scripts/carve_stages.py``, at ``kitti_parked_carve``'s map
+   configuration): keys, ``n_valid``, both pool planes,
+   ``touched_overflow`` and the three metrics bit-equal to the plain route,
+   under the cell's touched cap and one that loses blocks, each kernel timed
+   beside the plain stages it replaces, with its bound;
 3. the main path: ``TSDFMap(0.05, 0.1, device="cuda")`` at the default
    MapConfig inserts the 2^20-point r = 5 m sphere (seed 420, bench.py's
    cloud) six times (the first runs eagerly and captures the map's CUDA
@@ -160,9 +167,10 @@ runs, failing with a non-zero exit on the first error:
    reserved before, during and after; ``utils.timing.profile_insert``'s
    report and a ``trace`` file on the card; ``examples/demo_sphere`` at
    full size in its own process, its PLY on the r = 5 sphere;
-15. ``TSDFMap.insert`` through its CUDA graphs (``core/graph.py``), every
-   insert bit-equal to the eager insert of a twin map (states active and
-   rotated-out, every metric) and reading nothing on the host: the dense
+15. in a process of its own, ``TSDFMap.insert`` through its CUDA graphs
+   (``core/graph.py``), every insert bit-equal to the eager insert of a
+   twin map (states active and rotated-out, every metric) and reading
+   nothing on the host: the dense
    sphere under ``fused``, ``tile``, ``pallas`` and ``sample_tile``
    (clouds of 2^20,
    2^20 - 12,345 and 900,000 points in one bucket), the 2048-point sparse
@@ -200,13 +208,16 @@ a replay, and K1, K3, K4 and K5 not at all; and before each of phase 8's
 ``set_conditional`` must launch and K1, the general K4 and
 ``seg_samples`` not at all.
 Phases 10-12 reset them just before their own inserts and read them right
-after (K2 on the carved stream and the checkpoint's 2 scans, K1-K3 on the
-loop closure's sphere passes); phase 13 just before one N = 4 dense insert
+after (K2, ``seg_samples``, ``carve_keys`` and ``carve_apply`` twice each on
+the carved stream, the eager scan and the capture, and its graphs once each
+a replay; K2 on the checkpoint's 2 scans, K1-K3 on the loop closure's
+sphere passes); phase 13 just before one N = 4 dense insert
 (K1-K3) and the N = 4 stream (K2, K3).
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
 for K4-K5, phase 8's ``sample_tile`` stream for the sorted K4, phase 8's
-``seg`` stream for ``seg_samples``, phase 7 for M1-M3 (and, as ``launches_stream``,
+``seg`` stream for ``seg_samples``, phase 10's carved stream for the
+carve's kernels, phase 7 for M1-M3 (and, as ``launches_stream``,
 ``launches_carve``, ``launches_checkpoint`` and ``launches_loop_closure``,
 in the inserts of phases 8, 10, 11 and 12, and as
 ``launches_sharded_dense`` and ``launches_sharded_stream`` in phase 13's,
@@ -275,6 +286,12 @@ KERNELS = {
     # no TPU kernel: the seg insert's samples, which XLA computes there
     "seg_samples": ("chad_tsdf_tpu_torch/csrc/seg_samples.cu",
                     "chad_tsdf_tpu/core/integrate.py:759"),
+    # no TPU kernel: the carve's keys and pool update, which XLA computes
+    # there
+    "carve_keys": ("chad_tsdf_tpu_torch/csrc/carve.cu",
+                   "chad_tsdf_tpu/core/carve.py:121"),
+    "carve_apply": ("chad_tsdf_tpu_torch/csrc/carve.cu",
+                    "chad_tsdf_tpu/core/carve.py:121"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores
@@ -730,6 +747,46 @@ def check_seg_samples(results):
               (K1_OPS_PER_POINT + K1_OPS_PER_STEP * k) * bucket)
     log(f"seg_samples: keys bit-equal to the plain version, [name, n_valid, "
         f"n_samp_ovf] {seen}; {results['seg_samples']}")
+
+
+def check_carve_kernels(results):
+    """Phase 2, the carve's kernels (``ops/carve_kernels.py``) against the
+    plain route on ``scripts/carve_stages.py``'s scene (a parked sweep
+    carved into the map of another from the same spot, at
+    ``kitti_parked_carve``'s map configuration): keys and their count,
+    both pool planes, ``touched_overflow`` and the metrics bit for bit,
+    under the cell's touched cap and one that loses blocks; then each
+    kernel timed beside its plain stages, with its bound."""
+    from chad_tsdf_tpu_torch.scripts import carve_stages
+
+    dev = torch.device("cuda")
+    cfg, state, pts, n, pos = carve_stages.scene(dev)
+    held = {}
+    for cap in (cfg.touched_capacity, carve_stages.SMALL_CAP):
+        c = dataclasses.replace(cfg, touched_capacity=cap)
+        held[cap] = carve_stages.hold(state, pts, n, pos, c)
+        require((held[cap]["touched_overflow"] > 0) ==
+                (cap == carve_stages.SMALL_CAP),
+                f"carve at touched cap {cap}: {held[cap]}")
+    counts = held[cfg.touched_capacity]
+    rays = -(-pts.shape[0] // cfg.carve_subsample)
+    b = carve_stages.bounds_ms(counts, cfg, rays)
+    ms = carve_stages.stage_times(state, pts, n, pos, cfg, 10)
+    plain = ms["plain"]
+    results["carve_keys"] = {
+        "max_abs_err": 0.0, "ms": ms["kernel"]["keys"],
+        "plain_ms": plain["keys"], "bound_ms": b["carve_keys"],
+        "bound_by": "bytes", "slots": counts["slots"]}
+    results["carve_apply"] = {
+        "max_abs_err": 0.0, "ms": ms["kernel"]["apply"],
+        "plain_ms": plain["entries"] + plain["lookup"] + plain["apply"],
+        "bound_ms": b["carve_apply"], "bound_by": "bytes",
+        "n_valid": counts["n_valid"],
+        "n_carved_voxels": counts["n_carved_voxels"]}
+    log(f"carve kernels: bit-equal to the plain route under touched caps "
+        f"{sorted(held)}: {held}; stages (ms) {ms}; bounds {b}")
+    del state, pts
+    torch.cuda.empty_cache()
 
 
 def check_sample_tile(cfg, results):
@@ -1584,6 +1641,12 @@ def carve_scene():
     return n_car0, near(after, 2.0), near(after, 5.0)
 
 
+# what a carving map's graphs launch a replay: the seg insert's K2 and
+# sample kernel, then the carve's two kernels
+CARVE_GRAPH_LAUNCHES = {"estimate_normals": 1, "seg_samples": 1,
+                        "carve_keys": 1, "carve_apply": 1}
+
+
 def run_carve():
     """Phase 10: carving on the KITTI-shaped stream, then the parked-car
     scene; returns the carved stream's launch counts."""
@@ -1618,12 +1681,12 @@ def run_carve():
         # scan 0 ran eagerly and captured the graph (insert and carve);
         # the other scans replayed it
         (cg,) = m._graphs.values()
-        require(launches["estimate_normals"] == 2 and
+        require(all(launches[k] == 2 for k in CARVE_GRAPH_LAUNCHES) and
                 cg.replays == len(scans) - 1 and
-                cg.launches == {"estimate_normals": 1, "seg_samples": 1},
-                f"K2 launched {launches['estimate_normals']} times for "
-                f"{len(scans)} carved inserts; the graph: {cg.replays} "
-                f"replays, launches {cg.launches}")
+                cg.launches == CARVE_GRAPH_LAUNCHES,
+                f"{len(scans)} carved inserts launched "
+                f"{ {k: launches[k] for k in CARVE_GRAPH_LAUNCHES} }; the "
+                f"graph: {cg.replays} replays, launches {cg.launches}")
         for k in ("fused_tile_partials", "merge_partials", "tile_partials",
                   "accumulate_segments"):
             require(launches[k] == 0, f"{k} launched on the carved stream")
@@ -2390,6 +2453,8 @@ KERNEL_SYMBOLS = {
     "accumulate_segments": ("accumulate_chunks_kernel",),
     "set_conditional": ("set_conditional_kernel",),
     "seg_samples": ("seg_samples_kernel",),
+    "carve_keys": ("carve_keys_kernel",),
+    "carve_apply": ("carve_apply_kernel",),
 }
 GRAPH_FIELDS = ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
                 "point_overflow", "sample_overflow", "block_overflow",
@@ -2793,6 +2858,12 @@ def run_map_graph():
             gs, es = gm.stats(), em.stats()
             require(gs == es, f"{name}: stats after the drain differ")
         (g,) = graphs[:1]
+        if name.startswith("stream carve"):
+            carving = {k: g.launches.get(k, 0)
+                       for k in ("carve_keys", "carve_apply")}
+            want = 1 if name.endswith("on") else 0
+            require(set(carving.values()) == {want},
+                    f"{name}: the carve's kernels a replay {carving}")
         fell = tile_ovf > 0
         if "sample_tile" in name:
             # the sorted K4 once a replay outside the IF node, the general
@@ -2809,11 +2880,12 @@ def run_map_graph():
         if not name.startswith("stream"):
             # one more replay under the profiler, held to the eager insert
             # after it: the kernels the device ran, K4 and K5 only where
-            # the IF node took its body.  Late in this script the profiler
-            # has reported K5's two kernels twice for one such replay (not
-            # in a process that runs phases 14-15 alone); a second K5 run
-            # would double the pools, which the eager insert after it
-            # rules out, so the check on the profiler is the set
+            # the IF node took its body.  This phase runs in a process of
+            # its own (phase15_apart): CUPTI's names for the records of an
+            # IF body go wrong as the process's history grows (PERF.md §7).
+            # A second K5 run would double the pools, which the eager
+            # insert after it rules out, so the check on the profiler is
+            # the set
             pts, pos = clouds[-1]
             names, busy, window = profiled(lambda: gm.insert(pts, pos))
             same_insert(gm, em, gm.last_metrics, em.insert(pts, pos),
@@ -2845,6 +2917,39 @@ def run_map_graph():
     log(f"phase 15 memory reserved (MiB): {mem}; time "
         f"{time.perf_counter() - t_phase:.1f} s")
     return per_insert, mem
+
+
+def phase15_apart():
+    """Phase 15 in a process of its own, this script run with
+    ``--phase15 <json>``: in a process that ran phases 1-14, the profiler
+    paired the records of an IF body's kernels with other kernels' names
+    and attributes in some sessions (their times stayed right), also where
+    no carve kernel was ever loaded (PERF.md §7).  Returns what
+    :func:`run_map_graph` returns."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "phase15.json")
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--phase15", path], cwd=ROOT, timeout=900)
+        require(proc.returncode == 0, f"phase 15 exited {proc.returncode}")
+        with open(path) as fh:
+            got = json.load(fh)
+    return got["per_insert"], got["mem"]
+
+
+def phase15_main(path: str) -> int:
+    """The process of :func:`phase15_apart`: phase 15, its result written
+    to ``path``."""
+    sys.path.insert(0, ROOT)
+    from chad_tsdf_tpu_torch import kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.library()
+    per_insert, mem = run_map_graph()
+    require(not jax_package_modules(),
+            f"the port imported {jax_package_modules()}")
+    with open(path, "w") as fh:
+        json.dump({"per_insert": per_insert, "mem": mem}, fh)
+    return 0
 
 
 def main() -> int:
@@ -2886,6 +2991,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_seg_samples(results)
     torch.cuda.empty_cache()
+    check_carve_kernels(results)
     check_k5(cfg, results)
     check_conditional(results)
     micro_errs = check_micro()
@@ -3123,7 +3229,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 15: TSDFMap.insert through its CUDA graphs ----
-    map_graph_launches, map_graph_mem = run_map_graph()
+    map_graph_launches, map_graph_mem = phase15_apart()
     torch.cuda.empty_cache()
 
     # ---- result ----
@@ -3137,6 +3243,9 @@ def main() -> int:
                         "accumulate_segments"],
                     # the seg stream of phase 8
                     seg_samples=stream_launches["seg_samples"],
+                    # the carved stream of phase 10
+                    carve_keys=carve_launches["carve_keys"],
+                    carve_apply=carve_launches["carve_apply"],
                     **{k: micro_launches[k] for k in (
                         "micro_stagea_phases", "micro_tile_accum",
                         "micro_mxu8")})
@@ -3188,4 +3297,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase15"]:
+        sys.exit(phase15_main(sys.argv[2]))
     sys.exit(main())
