@@ -31,20 +31,24 @@ captured right after the first and replayed right after it
 capture put them, and writes its metrics into the same vector.  Apart,
 its device time can be bracketed by events between the two replays.
 
-``TSDFMap.insert`` keeps one per (dispatched config, point bucket) on the
-map's own active state: a scan is one host-to-device copy of its points
-into the input buffer and one replay, with no copy of the state in or
-out and no padding or packing on the host.
+``TSDFMap.insert`` sends every chunk through one per (dispatched config,
+point bucket, packed ingest, carving) on the map's own active state, on
+every device: a scan is one host-to-device copy of its points into the
+input buffer, then the step, with no copy of the state in or out and no
+padding or packing on the host.  On CUDA (:func:`use_graph`, and
+``TSDFMap.graphs_enabled``) the step is captured and replayed; otherwise
+:meth:`InsertGraph.run_step` and :meth:`InsertGraph.run_carve` run it
+eagerly on each insert, the fallback unconditionally (no IF node outside
+a capture), which changes nothing when no sample needs it.
 ``insert_steps_scan`` keeps one per (config, cloud shape) on a copy of
 the state it is given.
 
 Before capture, :meth:`InsertGraph.warm` runs the same insert eagerly on
 the same buffers, so every kernel is built, every lazily loaded module
-loaded and K5's cached workspace allocated; its fallback runs
-unconditionally there, which changes nothing when no sample needs it.
-The warm insert is a real insert: its result stays.  A capture that
-fails raises; nothing falls back to the eager insert.  The stage hook of
-``profile_insert`` is off while capturing.  ``kernels.LAUNCHES`` counts
+loaded and K5's cached workspace allocated.  The warm insert is a real
+insert: its result stays.  A capture that fails raises; nothing falls
+back to the eager insert.  The stage hook of ``profile_insert`` is off
+while capturing.  ``kernels.LAUNCHES`` counts
 the launches of the warm insert and the capture, never a replay:
 ``launches`` holds what one replay (both graphs) launches outside the IF
 node and ``body_launches`` what its body launches when the count is
@@ -69,7 +73,8 @@ CARVE_KEYS = ("n_carve_samples", "n_carved_voxels", "n_carve_dropped")
 
 
 def use_graph(device: torch.device) -> bool:
-    """Whether inserts on ``device`` replay graphs: on CUDA."""
+    """Whether an :class:`InsertGraph` on ``device`` is captured and
+    replayed (on CUDA) rather than run eagerly."""
     return device.type == "cuda"
 
 
@@ -162,10 +167,10 @@ class InsertGraph:
                 conditional.if_positive(tile_ovf, fallback, self._pool)
         if self.carve_config is not None:
             self._pts = pts
-            if eager:
-                self._carve()
 
-    def _carve(self) -> None:
+    def run_carve(self) -> None:
+        """The carve of the insert just run, eagerly (and what the carve's
+        graph captures)."""
         new, cm = carve.carve_step(self.state, self._pts, self.n_points,
                                    self.position, self.carve_config)
         integrate.write_back(self.state, new)
@@ -178,10 +183,20 @@ class InsertGraph:
         vals = self.out.clone()
         return {k: vals[i] for i, k in enumerate(self.keys)}
 
-    def warm(self) -> dict:
-        """The insert, eagerly on the graph's buffers (module docstring);
-        returns its metrics."""
+    def run_step(self) -> None:
+        """The insert, eagerly on the graph's buffers: its fallback runs
+        unconditionally (no IF node outside a capture), which changes
+        nothing when no sample needs it.  A carving graph's carve is
+        :meth:`run_carve`, which must follow."""
+        integrate._stage("host prep + upload")
         self._step(eager=True)
+
+    def warm(self) -> dict:
+        """The insert and its carve, eagerly (module docstring); returns
+        their metrics."""
+        self.run_step()
+        if self.carve_config is not None:
+            self.run_carve()
         return self.metrics()
 
     def capture(self) -> None:
@@ -203,7 +218,7 @@ class InsertGraph:
             if self.carve_config is not None:
                 carve_graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(carve_graph):
-                    self._carve()
+                    self.run_carve()
                 self.carve_graph = carve_graph
         finally:
             integrate.STAGE_HOOK = hook

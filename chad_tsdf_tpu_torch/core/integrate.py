@@ -53,14 +53,15 @@ fused, tile and sample-tiled paths, leaves the branch to the caller
 (:func:`insert_body`).
 In a CUDA graph (``core/graph.py``, what ``TSDFMap.insert`` replays on the
 card) the branch is an IF node decided on the device
-(``ops/conditional.py``).  Eagerly, :func:`insert_step_deferred` returns
-the insert's :class:`FallbackTail`, which copies the count of uncovered
-samples into pinned host memory behind an event and runs the fallback
-only when the caller settles it (``TSDFMap`` does at its next insert or
-read).  No backend reads the device on the host during an insert; the
-settle's wait is the one host wait (``utils/timing.py``
-``COUNTS["host_syncs"]``) that :func:`insert_step`, which settles at
-once, adds.
+(``ops/conditional.py``); the graph's eager step runs the fallback
+unconditionally, which changes nothing when no sample needs it.
+:func:`insert_step_deferred` returns the insert's :class:`FallbackTail`,
+which copies the count of uncovered samples into pinned host memory
+behind an event and runs the fallback only when the caller settles it
+(the sharded map does at its next insert or read).  No backend reads the
+device on the host during an insert; the settle's wait is the one host
+wait (``utils/timing.py`` ``COUNTS["host_syncs"]``) that
+:func:`insert_step`, which settles at once, adds.
 
 :func:`insert_steps_scan` inserts one padded cloud ``reps`` times (the
 JAX package's ``lax.scan`` over the insert, what bench.py times): on CUDA
@@ -482,7 +483,6 @@ def insert_step_deferred(state: ActiveMapState, points, n_points,
     that must be settled (:func:`settle`) before anything else reads or
     updates the state.
     """
-    _stage("host prep + upload")
     state, metrics, tile_ovf, make_fallback = insert_body(
         state, points, n_points, position, config)
     tail = None if tile_ovf is None else \

@@ -24,26 +24,23 @@ include/chad/tsdf.hpp:21-171, src/chad/tsdf.cpp:26-86):
 
 Space carving (``carve_steps > 0``, core/carve.py) follows each insert.
 
-On the card each chunk of an insert is one CUDA graph replay
-(``core/graph.py`` ``InsertGraph``: the upload into the graph's input
-buffers, then the insert and its fallback as an IF node decided on
-the device), as the JAX package issues one executable per chunk; a
-carving map replays the carve's own graph right after (the span
-``chad.insert.carve``, its device time bracketed by events).  The graphs
-are the map's own, cached by (dispatched config, point
-bucket, packed ingest, carving) and bound to the map's active state, which
-a rotation copies out for its stub and resets in place.  Replacing the
-active state from outside (the ``state`` setter, a checkpoint load) drops
-them; ``finalize_active``, ``merge`` and ``optimize_loop_closures`` leave
-the active state's tensors where they are.  The first insert of a key
-runs eagerly and captures the graph after it.
-
-On the CPU the insert is the eager loop, and the fused, tile and
-sample_tile backends end an insert with a deferred branch (core/integrate.py
-``FallbackTail``): the map settles it before anything else reads or
-updates the active state (the next insert, a rotation, ``state``,
-``stats``, ``save``, ``raycast``, a checkpoint, a loop closure, or a read
-of that insert's metrics).  No insert reads the device on the host.
+Each chunk of an insert goes through one ``core/graph.py``
+``InsertGraph``, on every device, as the JAX package issues one executable
+per chunk: the upload into its input buffers, then the padding, packing,
+insert and fallback on the device, and on a carving map the carve (the
+span ``chad.insert.carve``, its device time read by the map's
+``timing.CarveClock``).  The graphs are the map's own, cached by
+(dispatched config, point bucket, packed ingest, carving) and bound to
+the map's active state, which a rotation copies out for its stub and
+resets in place.  Replacing the active state from outside (the ``state``
+setter, a checkpoint load) drops them; ``finalize_active``, ``merge`` and
+``optimize_loop_closures`` leave the active state's tensors where they
+are.  On the card the first insert of a key runs eagerly and captures
+the graph after it, and the others replay it, the fallback an IF node
+decided on the device; on the CPU, or with ``graphs_enabled = False``,
+every insert runs the graph's step eagerly, the fallback unconditionally
+(a no-op where no sample needs it).  No insert reads the device on the
+host.
 
 The map runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``; without a card the default raises rather
@@ -66,7 +63,6 @@ import warnings
 import weakref
 
 import numpy as np
-import torch
 
 from .. import native
 from ..config import MapConfig
@@ -113,8 +109,8 @@ class LazyMetrics(collections.abc.MutableMapping):
     A ``MutableMapping`` rather than a dict subclass, so ``dict(m)``,
     ``**m`` and ``==`` all go through the converting ``__getitem__``.
     ``raw(key)`` returns the stored value unconverted.  ``settle`` (the
-    map's) runs before any read, so a deferred fallback or carve of the
-    insert is counted.
+    sharded map's) runs before any read, so a deferred fallback or carve
+    of the insert is counted.
     """
 
     def __init__(self, data=None, settle=None):
@@ -169,8 +165,9 @@ class LazyMetrics(collections.abc.MutableMapping):
 
 
 class TSDFMap:
-    # inserts on the card replay CUDA graphs (module docstring); False
-    # runs the eager loop there too, for comparisons
+    # inserts on the card capture and replay their graphs (module
+    # docstring); False runs the graphs' step eagerly there too, for
+    # comparisons
     graphs_enabled = True
 
     def __init__(self, sdf_res: float = 0.05, sdf_trunc: float = 0.1,
@@ -185,13 +182,17 @@ class TSDFMap:
         self.levels = dag.NodeLevels()
         self.submaps: list[submap_mod.Submap] = []
         self._pending: list[submap_mod.PendingSubmap] = []
-        # the last insert's unsettled end: (FallbackTail, carve arguments
-        # or None, that insert's LazyMetrics)
-        self._deferred = None
         self._state = None
         self._positions: list[np.ndarray] = []
         self._active_snapshot: submap_mod.Submap | None = None
         self.last_metrics: dict = {}
+        self._n_inserts = 0
+        # the lossy overflow kinds warned of, and the insert count at the
+        # last check
+        self._overflow_warned: set = set()
+        self._checked_at_insert = 0
+        # (map key, codes, sd) for point queries: _sorted_samples
+        self._query_cache = None
         # the insert graphs (their private memory pools bounded as
         # insert_steps_scan's) and the active state they are bound to
         self._graphs = integrate.GraphCache(integrate.MAX_GRAPH_BYTES)
@@ -202,8 +203,7 @@ class TSDFMap:
     # ------------------------------------------------------------------
     @property
     def state(self):
-        """The active map's state, with the last insert settled."""
-        self._settle()
+        """The active map's state."""
         return self._state
 
     @state.setter
@@ -212,7 +212,6 @@ class TSDFMap:
         graphs are bound to drops them (the next insert captures anew);
         None keeps them for the next submap, which resets their state in
         place."""
-        self._settle()
         if value is not None and value is not self._gstate:
             self.drop_graphs()
         self._state = value
@@ -221,27 +220,6 @@ class TSDFMap:
         """Drop the map's insert graphs and their memory pools."""
         self._graphs.clear()
         self._gstate = None
-
-    def _settle(self) -> None:
-        """Finish the last insert: run its fallback if the device counted
-        uncovered samples (core/integrate.py ``settle``: waits for an
-        event, normally long done), then its deferred carve, in the JAX
-        package's order.  A no-op when nothing is pending."""
-        if getattr(self, "_deferred", None) is None:
-            return
-        tail, carve_args, metrics = self._deferred
-        self._deferred = None
-        state = integrate.settle(tail, self._state, metrics._data)
-        if carve_args is not None:
-            state, cmetrics = self._carve(state, carve_args)
-            metrics.add(cmetrics)
-        self._state = state
-
-    def _carve(self, state, carve_args):
-        """``carve.carve_step`` eagerly, timed by the map's carve clock
-        (the host clock on the CPU)."""
-        with span("chad.insert.carve"), self._carve_clock:
-            return carve.carve_step(state, *carve_args, self.config)
 
     @property
     def n_submaps(self) -> int:
@@ -271,7 +249,7 @@ class TSDFMap:
         ``carve_device_us`` / ``carve_timed`` (``timing.CarveClock``,
         read without a wait).
         """
-        with span("chad.insert", getattr(self, "_n_inserts", 0)) as sp:
+        with span("chad.insert", self._n_inserts) as sp:
             timing.count("inserts")
             if self.config.carve_steps > 0:
                 timing.count("carve_inserts")
@@ -300,61 +278,22 @@ class TSDFMap:
                 self._start_submap(position)
         self._positions.append(position.copy())
         self._active_snapshot = None
-        if not self._use_graphs():
-            pos_t = torch.from_numpy(position.copy()).to(self.device)
-            timing.count("h2d_bytes", pos_t.nbytes)
 
         cap = self.config.max_points
-        buckets = self.config.buckets
-        metrics_acc = LazyMetrics(settle=self._settle)
+        metrics_acc = LazyMetrics()
         for beg in range(0, max(len(points), 1), cap):
             chunk = points[beg:beg + cap]
-            n = chunk.shape[0]
-            # pad to the smallest shape bucket that fits (map.py:155-164 of
-            # the JAX package): the tile kernels need N % 1024 == 0, and a
+            # the smallest shape bucket that fits (map.py:155-164 of the
+            # JAX package): the tile kernels need N % 1024 == 0, and a
             # small scan skips most of the max_points pipeline
-            bucket = next((b for b in buckets if b >= n), cap)
+            bucket = next((b for b in self.config.buckets
+                           if b >= len(chunk)), cap)
             with span("chad.insert.dispatch"):
                 cfg = self._dispatch_config(chunk)
-            if self._use_graphs():
-                # the graph pads (and packs) on the device
-                metrics_acc.add(self._insert_graph(cfg, bucket, chunk,
-                                                   position))
-                continue
-            with span("chad.insert.load"):
-                if n < bucket:
-                    chunk = np.concatenate(
-                        [chunk, np.zeros((bucket - n, 3), np.float32)])
-                n_t = torch.full((), n, dtype=torch.int32,
-                                 device=self.device)
-                if self.config.packed_ingest:
-                    # the int16 array is what crosses to the device
-                    q = torch.from_numpy(integrate.pack_points(
-                        chunk, position, cfg.sdf_res))
-                    pts = integrate.unpack_points(q.to(self.device), pos_t,
-                                                  cfg)
-                else:
-                    q = pts = torch.from_numpy(chunk).to(self.device)
-                timing.count("h2d_bytes", q.nbytes + n_t.nbytes)
-            # reading self.state settles the previous cloud's end first
-            with span("chad.insert.step"):
-                self.state, metrics, tail = integrate.insert_step_deferred(
-                    self.state, pts, n_t, pos_t, cfg)
-            metrics_acc.add(metrics)
-            # the carve gets the map's config, not the dispatched one: it
-            # does not depend on the accumulate backend.  It follows the
-            # fallback, so it waits with it when that is undecided.
-            carve_args = (pts, n_t, pos_t) if self.config.carve_steps > 0 \
-                else None
-            if tail is not None:
-                self._deferred = (tail, carve_args, metrics_acc)
-            elif carve_args is not None:
-                self._state, cmetrics = self._carve(self._state, carve_args)
-                metrics_acc.add(cmetrics)
+            metrics_acc.add(self._insert_chunk(cfg, bucket, chunk, position))
         if self.config.profile:
-            self._settle()
             timing.synchronize(self.device)
-        self._n_inserts = getattr(self, "_n_inserts", 0) + 1
+        self._n_inserts += 1
         # the overflow check reads the device: amortize it over the stream
         if self._n_inserts % 64 == 0 or self.config.profile:
             with span("chad.insert.overflow_check"):
@@ -362,39 +301,48 @@ class TSDFMap:
         self.last_metrics = metrics_acc
         return metrics_acc
 
-    def _use_graphs(self) -> bool:
-        return self.graphs_enabled and graph.use_graph(self.device)
-
-    def _insert_graph(self, cfg: MapConfig, bucket: int, chunk: np.ndarray,
+    def _insert_chunk(self, cfg: MapConfig, bucket: int, chunk: np.ndarray,
                       position: np.ndarray) -> dict:
-        """One chunk (unpadded) as one replay of the map's graph for
-        (``cfg``, ``bucket``, packed ingest, carving), captured after an
-        eager first insert when new, and in a carving map one replay of
-        its carve's graph right after, timed by the map's carve clock.
-        Returns the chunk's metrics."""
+        """One chunk (unpadded) through the map's graph for (``cfg``,
+        ``bucket``, packed ingest, carving), made on first use on the
+        active state.  On the card one replay of it, captured after an
+        eager first insert when new; on the CPU, or with ``graphs_enabled``
+        off, its step run eagerly.  A carving map carves right after (the
+        carve takes the map's config: it does not depend on the accumulate
+        backend), timed by the map's carve clock.  Returns the chunk's
+        metrics."""
         carving = self.config.carve_steps > 0
         key = (cfg, bucket, cfg.packed_ingest, carving)
         g = self._graphs.get(key)
-        if g is not None:
-            with span("chad.insert.load"):
-                g.load(chunk, position, len(chunk))
-            with span("chad.insert.replay"):
-                g.replay()
-                if not carving:
-                    return g.metrics()
-            with span("chad.insert.carve"), self._carve_clock:
-                g.replay_carve()
-            return g.metrics()
-        if self._gstate is None:
-            self._gstate = self._state
-        g = graph.InsertGraph(self._gstate, cfg, bucket, cfg.packed_ingest,
-                              self.config if carving else None)
+        fresh = g is None
+        if fresh:
+            if self._gstate is None:
+                self._gstate = self._state
+            g = graph.InsertGraph(self._gstate, cfg, bucket,
+                                  cfg.packed_ingest,
+                                  self.config if carving else None)
         with span("chad.insert.load"):
             g.load(chunk, position, len(chunk))
-        with span("chad.insert.capture"):
-            metrics = g.warm()
-            g.capture()
-        self._graphs.put(key, g)
+        if not (self.graphs_enabled and graph.use_graph(self.device)):
+            with span("chad.insert.step"):
+                g.run_step()
+            if carving:
+                with span("chad.insert.carve"), self._carve_clock:
+                    g.run_carve()
+            metrics = g.metrics()
+        elif g.graph is None:
+            with span("chad.insert.capture"):
+                metrics = g.warm()
+                g.capture()
+        else:
+            with span("chad.insert.replay"):
+                g.replay()
+            if carving:
+                with span("chad.insert.carve"), self._carve_clock:
+                    g.replay_carve()
+            return g.metrics()
+        if fresh:
+            self._graphs.put(key, g)
         return metrics
 
     # overflow kinds that drop content; tile_overflow is excluded (those
@@ -408,13 +356,12 @@ class TSDFMap:
         counts)."""
         if self.state is None:
             return
-        warned = getattr(self, "_overflow_warned", set())
         knob = {"point_overflow": "block_bits (local extent)",
                 "sample_overflow": "block_bits (local extent)",
                 "block_overflow": "block_capacity",
                 "touched_overflow": "touched_capacity"}
         for name in self._LOSSY_OVERFLOWS:
-            if name in warned:
+            if name in self._overflow_warned:
                 continue
             v = timing.host_item(getattr(self.state, name))
             if v > 0:
@@ -423,9 +370,8 @@ class TSDFMap:
                     f"counted; the map is degraded in those regions. "
                     f"Raise MapConfig.{knob[name]} to avoid this.",
                     stacklevel=stacklevel)
-                warned.add(name)
-        self._overflow_warned = warned
-        self._checked_at_insert = getattr(self, "_n_inserts", 0)
+                self._overflow_warned.add(name)
+        self._checked_at_insert = self._n_inserts
 
     def __del__(self):
         # a short-lived map (< 64 inserts, never rotated or saved) would
@@ -465,7 +411,6 @@ class TSDFMap:
         origin = origin_blocks_for_position(position, self.config)
         if self._gstate is not None:
             # the graphs' state, reset in place (its tensors stay bound)
-            self._settle()
             self._state = reset_state_(self._gstate, origin)
         else:
             self.state = create_state(self.config, origin, self.device)
@@ -735,9 +680,8 @@ class TSDFMap:
         """Code-sorted (codes, sd) for point queries, cached until the map
         changes: the key moves with every insert (a rotation happens in
         one), drain, ``finalize_active`` and ``merge``."""
-        cache = getattr(self, "_query_cache", None)
-        key = (getattr(self, "_n_inserts", 0), len(self.submaps),
-               len(self._pending))
+        cache = self._query_cache
+        key = (self._n_inserts, len(self.submaps), len(self._pending))
         if cache is not None and cache[0] == key:
             return cache[1], cache[2]
         codes, sd = self.voxel_samples()        # already code-sorted/unique

@@ -50,6 +50,9 @@ class ShardedTSDFMap(TSDFMap):
         self._steps: dict = {}
         self._carve_step = None
         self._state_stack = None
+        # the last insert's unsettled end: (each local shard's FallbackTail
+        # or None, carve arguments or None, that insert's LazyMetrics)
+        self._deferred = None
         self._origin = None
         self._bounds = None
 
@@ -66,8 +69,9 @@ class ShardedTSDFMap(TSDFMap):
 
     def _settle(self) -> None:
         """Settle the last insert: each shard's deferred fallback into its
-        persistent pool, then the deferred carve (``TSDFMap._settle``)."""
-        if getattr(self, "_deferred", None) is None:
+        persistent pool, then the deferred carve, in the JAX package's
+        order.  A no-op when nothing is pending."""
+        if self._deferred is None:
             return
         tails, carve_args, metrics = self._deferred
         self._deferred = None
@@ -175,7 +179,7 @@ class ShardedTSDFMap(TSDFMap):
                   f"samples={metrics_acc['n_valid_samples']} "
                   f"blocks={metrics_acc['n_blocks']} "
                   f"deferred={metrics_acc['route_overflow']}")
-        self._n_inserts = getattr(self, "_n_inserts", 0) + 1
+        self._n_inserts += 1
         if self._n_inserts % 64 == 0 or self.config.profile:
             self._warn_overflow()
         self.last_metrics = metrics_acc
@@ -223,23 +227,21 @@ class ShardedTSDFMap(TSDFMap):
         any shard warns once per kind."""
         if (self._state_stack if local else self.state_stack) is None:
             return
-        warned = getattr(self, "_overflow_warned", set())
         knob = {"point_overflow": "block_bits (local extent)",
                 "sample_overflow": "block_bits (local extent)",
                 "block_overflow": "block_capacity",
                 "touched_overflow": "touched_capacity"}
         ovf = self._stacked_overflow(local)
         for name in self._LOSSY_OVERFLOWS:
-            if name in warned or ovf[name] == 0:
+            if name in self._overflow_warned or ovf[name] == 0:
                 continue
             warnings.warn(
                 f"ShardedTSDFMap: {name} = {ovf[name]} across shards — "
                 f"samples were dropped and counted; the map is degraded in "
                 f"those regions. Raise MapConfig.{knob[name]} to avoid "
                 "this.", stacklevel=3)
-            warned.add(name)
-        self._overflow_warned = warned
-        self._checked_at_insert = getattr(self, "_n_inserts", 0)
+            self._overflow_warned.add(name)
+        self._checked_at_insert = self._n_inserts
 
     def __del__(self):
         # TSDFMap.__del__, on this process's shards only and without

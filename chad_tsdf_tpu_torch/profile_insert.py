@@ -25,19 +25,19 @@ cloud, seed 420) at the default ``MapConfig``:
 configuration of ``scripts/kitti_stream.py``, dispatched to the sparse
 backend as on the card (``--sparse-impl``, ``seg`` unless said; ``--device
 cpu`` forces it).  On the card ``TSDFMap.insert`` replays its CUDA graph,
-so 1 profiles the replays; the stages of 2 are those of the eager insert
-(a graph replays no Python, so nothing marks them there): keys + sort,
-normals (K2), DDA + payload (under ``seg`` the ``seg_samples`` kernel),
-then under ``seg`` the 2-key sort, the
-segmented sum, compaction, directory and scatter, under ``sample_tile``
-the sample sort, K4 and the K3 merge (its fallback, when a tile's list
-overflows, is settled at the next insert and lands in that insert's
-first stage), marked through ``core.integrate.STAGE_HOOK``, and everything
-``TSDFMap.insert``
-does before them on the host (padding, packing, the density estimate, the
-upload).  Beside them, on the host clock: the host's steps of the graph
-insert one by one (padding, the density estimate, packing) and the whole
-graph insert, to its return and to the end of its device work.
+so 1 profiles the replays; the stages of 2 are those of the graph's step
+run eagerly (a graph replays no Python, so nothing marks them there):
+everything ``TSDFMap.insert`` does before the step (the density estimate,
+the upload into the graph's buffers), keys + sort (after the padding and
+packing on the device), normals (K2), DDA + payload (under ``seg`` the
+``seg_samples`` kernel), then under ``seg`` the 2-key sort, the segmented
+sum, compaction, directory and scatter, under ``sample_tile`` the sample
+sort, K4 and the K3 merge (its fallback, which the eager step runs
+unconditionally, follows the last stage and counts in no stage), marked
+through ``core.integrate.STAGE_HOOK``.  Beside them, on the host clock:
+the host's steps of the graph insert one by one (padding, the density
+estimate, packing) and the whole graph insert, to its return and to the
+end of its device work.
 
 The last line is a JSON object with the numbers of 1-3.  The module also
 holds the test clouds and K5's input tables that ``chip_smoke.py`` and the
@@ -233,7 +233,8 @@ def seg_stage_times(pts: np.ndarray, position: np.ndarray,
     """Median per-stage ms over 5 eager inserts of one scan through
     ``TSDFMap.insert`` (after 2 warm-ups), the stages marked where
     ``core/integrate.py`` calls its ``STAGE_HOOK``; "host prep + upload" is
-    what ``insert`` does before ``insert_step``."""
+    what ``insert`` does before the graph's eager step
+    (``InsertGraph.run_step``)."""
     m = TSDFMap(config=config, device=device)
     m.graphs_enabled = False
     runs = []

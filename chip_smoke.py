@@ -68,10 +68,10 @@ runs, failing with a non-zero exit on the first error:
    ``auto`` on CUDA; its calls are counted), whose vertices must sit on the
    sphere; then the ``pallas`` and ``tile`` backends insert the same cloud
    and must give the fused map's blocks, weights and signed distances;
-4. a sparse 2048-point eager insert whose tiles overflow, so the deferred
-   fallback (K4, then K5) runs when the map settles; its pool is held
-   against the scatter backend, and the scatter form is not reached on the
-   fallback;
+4. a sparse 2048-point eager insert whose tiles overflow, so the
+   fallback (K4, then K5) that the eager step runs is needed; its pool is
+   held against the scatter backend, and the scatter form is not reached
+   on the fallback;
 5. determinism: two fresh maps, same insert, bit-equal pools (dense,
    sparse, and dense under ``pallas``);
 6. the golden workload (tests/golden/sphere_r2_seed420.npz) through the
@@ -188,7 +188,8 @@ runs, failing with a non-zero exit on the first error:
 
 The fused, tile and pallas inserts must not wait for the card
 (``utils/timing.py`` ``COUNTS["host_syncs"]`` does not grow over a
-replay, nor over an eager insert whose fallback is deferred), and the fused
+replay, nor over an eager insert, whose fallback runs unconditionally),
+and the fused
 inserts run once more under ``torch.cuda.set_sync_debug_mode("warn")``:
 no synchronising call may come from ``core/integrate.py``.
 
@@ -3124,7 +3125,7 @@ def main() -> int:
     # fused by name: under auto this cloud would be dispatched to seg
     sparse_cfg = MapConfig(max_points=2048, accumulate_impl="fused")
     sparse = sphere(2048, 5.0, 7)
-    # the eager insert with its deferred fallback (FallbackTail); phase 15
+    # the graph's step run eagerly, its fallback unconditionally; phase 15
     # holds the graph's IF node to it
     ms_ = TSDFMap(0.05, 0.1, config=sparse_cfg, device="cuda")
     ms_.graphs_enabled = False
@@ -3138,10 +3139,8 @@ def main() -> int:
     try:
         syncs0 = timing.COUNTS["host_syncs"]
         ms_.insert(sparse, origin0)
-        require(ms_._deferred is not None, "the fused insert settled itself")
         require(timing.COUNTS["host_syncs"] == syncs0,
                 "the sparse fused insert waited for the card")
-        ms_.state                  # settles: the fallback runs here
     finally:
         accumulate.accumulate_xla = scatter
     sparse_launches = dict(kernels.LAUNCHES)

@@ -1,11 +1,14 @@
-"""The fused and tile inserts' deferred fallback on the CPU: no host read
-in the insert, and a map whose last insert is settled only at the next
-settle point (the next insert, ``state``, ``stats``, ``save``, a rotation,
-a read of the insert's metrics) bit-equal to the same inserts settled at
-once (``integrate.insert_step``, the order the JAX package's ``lax.cond``
+"""The fused and tile inserts' fallback in ``TSDFMap.insert`` on the CPU:
+the map's graph step runs it eagerly inside the insert (unconditionally,
+core/graph.py), with no host read, and the map at every read point (the
+next insert, ``state``, ``stats``, ``save``, a rotation, a read of the
+insert's metrics) is bit-equal to the same inserts settled at once
+(``integrate.insert_step``, the order the JAX package's ``lax.cond``
 gives).  A small ``tile_nb`` forces the tiles' block lists to overflow, so
-the fallback runs; the settled state is held to the JAX package's tiled
-insert (interpret mode) with tests/test_torch_fused.py's gate."""
+the fallback is needed; the map's state is held to the JAX package's tiled
+insert (interpret mode) with tests/test_torch_fused.py's gate.
+``integrate.insert_step_deferred`` and ``settle``, which the sharded map
+defers with, are held to the map's insert."""
 
 import dataclasses
 
@@ -81,22 +84,30 @@ def _same(a, b):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
-@pytest.mark.parametrize("impl", ["fused", "tile"])
-def test_deferred_insert_reads_nothing(impl):
-    """Two inserts, the second settling the first (its fallback runs):
-    no call reads a tensor on the host."""
-    m = TSDFMap(config=_cfg(impl), device="cpu")
+def _inserted(m, scans):
+    """``scans`` into ``m``, asserting that no call reads a tensor on the
+    host or waits for the device; returns the last insert's metrics."""
     syncs = timing.COUNTS["host_syncs"]
     with count_host_reads() as reads:
-        m.insert(*SCANS[0])
-        met = m.insert(*SCANS[1])
+        for pts, pos in scans:
+            met = m.insert(pts, pos)
     assert reads == {}
-    # one host wait: the second insert settled the first
-    assert timing.COUNTS["host_syncs"] - syncs == 1
-    assert m._deferred is not None            # the fallback waits
-    met.raw("n_blocks")                       # a read settles it: one wait
-    assert timing.COUNTS["host_syncs"] - syncs == 2 and m._deferred is None
-    assert int(m.state.tile_overflow) > 0     # and it was needed
+    assert timing.COUNTS["host_syncs"] == syncs
+    return met
+
+
+@pytest.mark.parametrize("impl", ["fused", "tile"])
+def test_deferred_insert_reads_nothing(impl):
+    """Two inserts, each running its fallback: no call reads a tensor on
+    the host or waits, reading the metrics neither, and the map equals
+    the two inserts settled at once."""
+    m = TSDFMap(config=_cfg(impl), device="cpu")
+    met = _inserted(m, SCANS[:2])
+    syncs = timing.COUNTS["host_syncs"]
+    met.raw("n_blocks")                       # nothing left to settle
+    assert timing.COUNTS["host_syncs"] == syncs
+    _same(m.state, _settled_at_once(impl, SCANS[:2])[0])
+    assert int(m.state.tile_overflow) > 0     # and the fallback was needed
 
 
 @pytest.mark.parametrize("impl", ["fused", "tile"])
@@ -104,39 +115,39 @@ def test_deferred_insert_reads_nothing(impl):
                                    "rotation", "metrics"])
 def test_deferred_equals_settled_at_once(impl, point, tmp_path):
     m = TSDFMap(config=_cfg(impl), device="cpu")
-    met = m.insert(*SCANS[0])
-    assert m._deferred is not None
+    met = _inserted(m, SCANS[:1])
     once = _settled_at_once(impl, SCANS[:1])[0]
     if point == "next_insert":
-        m.insert(*SCANS[1])
-        # the second insert began by settling the first: its raw state is
-        # the first settled plus the second's main accumulate, unsettled
+        _inserted(m, SCANS[1:2])
+        # the second insert's fallback ran inside it: the map is the first
+        # insert settled, then the second's main accumulate and the
+        # fallback its tail holds back, which is needed
         cfg = _cfg(impl)
-        ref, _, tail = integrate.insert_step_deferred(
+        ref, rmet, tail = integrate.insert_step_deferred(
             once, torch.from_numpy(SCANS[1][0]), N,
             torch.from_numpy(SCANS[1][1]), cfg)
-        assert tail is not None
-        _same(m._state, ref)
+        assert tail is not None and tail.needed()
+        ref = integrate.settle(tail, ref, rmet)
+        _same(m.state, ref)
         _same(m.state, _settled_at_once(impl, SCANS[:2])[0])
     elif point == "state":
         _same(m.state, once)
     elif point == "stats":
         s = m.stats()
-        _same(m._state, once)
+        _same(m.state, once)
         assert s["overflow"]["tile"] == int(once.tile_overflow) > 0
     elif point == "save":
         m.save(str(tmp_path / "m.ply"))
-        _same(m._state, once)
+        _same(m.state, once)
     elif point == "rotation":
-        m.insert(*SCANS[1])
-        m.insert(*SCANS[2])                   # rotates the first map out
+        _inserted(m, SCANS[1:])               # rotates the first map out
         assert len(m._pending) == 1
         rotated, active = _settled_at_once(impl, SCANS)
         _same(m._pending[0].raw_state, rotated)
         _same(m.state, active)
     else:
-        # reading the metrics settles: n_new_blocks and n_blocks count the
-        # fallback's blocks, as insert_step's do
+        # n_new_blocks and n_blocks count the fallback's blocks, as
+        # insert_step's do
         want = integrate.insert_step(
             create_state(_cfg(impl), origin_blocks_for_position(
                 SCANS[0][1], _cfg(impl)), "cpu"),
@@ -145,8 +156,7 @@ def test_deferred_equals_settled_at_once(impl, point, tmp_path):
         assert met["n_new_blocks"] == int(want["n_new_blocks"])
         assert met["n_blocks"] == int(want["n_blocks"]) == \
             int(once.n_blocks)
-        assert m._deferred is None
-        _same(m._state, once)
+        _same(m.state, once)
 
 
 @pytest.fixture(scope="module")

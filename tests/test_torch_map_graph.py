@@ -1,13 +1,15 @@
 """``TSDFMap.insert`` through its CUDA graphs (``core/graph.py``), on the
 CPU.
 
-On the card each chunk of an insert is one replay of a graph captured on
-the map's own active state, with the fused/tile fallback as a conditional
-IF node (``ops/conditional.py``).  Here a stand-in graph whose replay
-re-runs the captured body in Python drives the same code: the stand-in's
+Every chunk of an insert goes through the map's ``InsertGraph`` on its
+own active state.  On the card the graph is captured and replayed, with
+the fused/tile fallback as a conditional IF node (``ops/conditional.py``);
+on the CPU, and with ``graphs_enabled = False``, its step runs eagerly,
+the fallback unconditionally.  Here a stand-in graph whose replay re-runs
+the captured body in Python drives the card's code: the stand-in's
 "capture" runs the body once and puts the state back, and the IF node is
 the kernel's plain version (the body runs where the count is positive).
-Held bit for bit against the eager insert (pools, directory, slot order,
+Held bit for bit against the eager step (pools, directory, slot order,
 counters, every metric of every insert): clouds of different ``n`` in one
 bucket under every backend, dense and sparse (the fused and tile fallback
 taken), a stream with two rotations whose stubs are drained after, packed
@@ -80,7 +82,7 @@ def stand_in(monkeypatch):
         self.out.copy_(out)
         self.graph.replay = lambda: self._step(eager=False)
         if self.carve_graph is not None:
-            self.carve_graph.replay = self._carve
+            self.carve_graph.replay = self.run_carve
 
     monkeypatch.setattr(graph.InsertGraph, "capture", stand_in_capture)
     monkeypatch.setattr(integrate, "_GRAPHS",
@@ -101,7 +103,8 @@ def _cfg(**kw):
 
 
 def _maps(cfg):
-    """(graph map, eager map) of one config."""
+    """(graph map, map that runs its graphs' step eagerly) of one
+    config."""
     eager = TSDFMap(config=cfg, device="cpu")
     eager.graphs_enabled = False
     return TSDFMap(config=cfg, device="cpu"), eager

@@ -330,8 +330,8 @@ def test_map_stream_dispatches_sample_tile(monkeypatch):
         m.insert(pts, pos)
         grew = timing.COUNTS["host_syncs"] - syncs
         ref.insert(pts, pos)
-    # an insert waits once: it settles the previous insert's deferred tail
-    assert grew == 1
+    # an insert waits for nothing: its fallback runs inside it
+    assert grew == 0
     assert m.n_submaps == 1 == ref.n_submaps
     assert int(m.state.tile_overflow) > 0
     lossy = {k: v for k, v in m.stats()["overflow"].items() if k != "tile"}
