@@ -29,14 +29,17 @@ the shape of the ``seg`` insert (core/integrate.py):
    in the sorted directory (a lookup, never an allocation), and each found
    voxel's ``(count * trunc * w_c, count * w_c)`` added to the pool.
 
-On CUDA tensors steps 1 and 3 are hand-written kernels
-(``ops/carve_kernels.py``, ``csrc/carve.cu``); on CPU tensors they are the
-plain torch ops of :func:`carve_keys_plain` and :func:`carve_apply_plain`:
-a fixed-capacity compaction (cumulative rank, no host read), a
+On CUDA tensors all three steps are hand-written kernels
+(``ops/carve_kernels.py``, ``csrc/carve.cu``, ``csrc/carve_sort.cu``: the
+sort a keys-only radix sort over the valid keys' ``3 * block_bits + 9``
+significant bits); on CPU tensors they are the plain torch ops of
+:func:`carve_keys_plain`, ``torch.sort`` and :func:`carve_apply_plain`: a
+fixed-capacity compaction (cumulative rank, no host read), a
 ``searchsorted`` per touched block and one ``index_add_`` per pool plane.
-The two routes give the same pool and counters bit for bit.  The sharded
-carve (``parallel/sharded.py``) merges shards between the plain stages
-(:func:`carve_entries`, :func:`lookup_blocks`, :func:`apply_entries`).
+The two routes give the same sorted keys, pool and counters bit for bit.
+The sharded carve (``parallel/sharded.py``) merges shards between the
+plain stages (:func:`carve_entries`, :func:`lookup_blocks`,
+:func:`apply_entries`).
 
 The lookup covers the first ``touched_capacity`` blocks of the sorted
 entries, as an insert touches at most that many.  The blocks past them are
@@ -140,11 +143,14 @@ def carve_keys_plain(points, n_points, position, origin_blocks,
 def carve_keys(points, n_points, position, origin_blocks,
                config: MapConfig):
     """Step 1: the free-space sample keys of one padded cloud, ``(key
-    i64[carve_steps * ceil(N / carve_subsample)], n_valid i32[])``, laid
-    out as :func:`carve_sample_keys`; the kernel on CUDA tensors."""
+    i64[carve_steps * ceil(N / carve_subsample)], n_valid i32[], counts)``,
+    laid out as :func:`carve_sample_keys`; the kernel on CUDA tensors,
+    which also counts the keys' radix digits for the sort
+    (:func:`digit_counts_plain`); ``counts`` is None on CPU tensors, whose
+    sort needs none."""
     if points.device.type == "cpu":
-        return carve_keys_plain(points, n_points, position, origin_blocks,
-                                config)
+        return (*carve_keys_plain(points, n_points, position, origin_blocks,
+                                  config), None)
     if not isinstance(n_points, torch.Tensor):
         n_points = torch.full((), int(n_points), dtype=torch.int32,
                               device=points.device)
@@ -154,7 +160,40 @@ def carve_keys(points, n_points, position, origin_blocks,
         step_m=float(np.float32(config.carve_stride * config.sdf_res)),
         res_recip=dda.res_recip_f32(config.sdf_res),
         trunc=float(np.float32(config.sdf_trunc)),
-        extent=config.blocks_per_axis * 8)
+        extent=config.blocks_per_axis * 8, key_bits=sort_key_bits(config))
+
+
+def sort_key_bits(config: MapConfig) -> int:
+    """The significant bits of a valid carve key ``bkey << 32 | okey``:
+    ``bkey < 2**(3 * block_bits)`` and ``okey < 2**9``."""
+    return 3 * config.block_bits + 9
+
+
+def digit_counts_plain(key, config: MapConfig):
+    """The radix digits of the valid keys that the card's sort takes from
+    ``carve_keys``: i32[passes, 256], ``[q, v]`` the keys whose bits ``8q``
+    to ``8q + 7`` of ``bkey << 9 | okey`` are ``v``."""
+    v = key[key != (INT32_MAX << 32 | INT32_MAX)]
+    v = (v >> 32) << 9 | (v & 511)
+    passes = carve_kernels.sort_passes(sort_key_bits(config))
+    return torch.stack([torch.bincount((v >> (8 * q)) & 255, minlength=256)
+                        for q in range(passes)]).to(torch.int32)
+
+
+def sort_keys_plain(key, n_valid, counts, config: MapConfig):
+    """Plain :func:`sort_keys`: ``torch.sort`` (``counts`` unused)."""
+    return torch.sort(key).values
+
+
+def sort_keys(key, n_valid, counts, config: MapConfig):
+    """Step 2: the keys of :func:`carve_keys` ascending, the ``n_valid``
+    (i32[]) valid ones first; on CUDA tensors a keys-only radix sort over
+    their ``3 * block_bits + 9`` significant bits, from the digit
+    ``counts`` that :func:`carve_keys` returned."""
+    if key.device.type == "cpu":
+        return sort_keys_plain(key, n_valid, counts, config)
+    return carve_kernels.carve_sort(key, n_valid, counts,
+                                    key_bits=sort_key_bits(config))
 
 
 def sorted_entries(key):
@@ -288,12 +327,12 @@ def carve_apply(state: ActiveMapState, key, n_valid, config: MapConfig):
             "n_carve_dropped": c[2]}, c[3]
 
 
-def _carve_with(keys_fn, apply_fn, state, points, n_points, position,
-                config):
-    key, n_valid = keys_fn(points, n_points, position, state.origin_blocks,
-                           config)
-    metrics, overflow = apply_fn(state, torch.sort(key).values, n_valid,
-                                 config)
+def _carve_with(keys_fn, sort_fn, apply_fn, state, points, n_points,
+                position, config):
+    key, n_valid, counts = keys_fn(points, n_points, position,
+                                   state.origin_blocks, config)
+    metrics, overflow = apply_fn(state, sort_fn(key, n_valid, counts,
+                                                config), n_valid, config)
     return dataclasses.replace(
         state, touched_overflow=state.touched_overflow + overflow), metrics
 
@@ -312,16 +351,19 @@ def carve_step_impl(state: ActiveMapState, points, n_points, position,
     counts them, on the device, and their samples are in none of the
     metrics.
     """
-    return _carve_with(carve_keys, carve_apply, state, points, n_points,
-                       position, config)
+    return _carve_with(carve_keys, sort_keys, carve_apply, state, points,
+                       n_points, position, config)
 
 
 def carve_step_plain(state: ActiveMapState, points, n_points, position,
                      config: MapConfig):
     """:func:`carve_step_impl` through the plain stages on any device: what
     the kernels are held against on the card."""
-    return _carve_with(carve_keys_plain, carve_apply_plain, state, points,
-                       n_points, position, config)
+    def keys_plain(*args):
+        return (*carve_keys_plain(*args), None)
+
+    return _carve_with(keys_plain, sort_keys_plain, carve_apply_plain,
+                       state, points, n_points, position, config)
 
 
 def carve_step(state: ActiveMapState, points, n_points, position,

@@ -17,7 +17,12 @@
 // and writes key[i * ns + j] = block key << 32 | offset key, or kInvalidKey
 // (INT32_MAX << 32 | INT32_MAX) for an invalid slot.  n_valid gains the
 // valid samples (the caller zeroes it in the same stream): a warp
-// reduction, then one atomic per CTA.
+// reduction, then one atomic per CTA.  It also counts the valid keys'
+// digits for carve_sort (carve_sort.cu), which then reads no key twice for
+// them: counts[q * kSortBins + v] gains the keys whose digit q (bits 8q to
+// 8q + 7 of bkey << 9 | okey) is v, for the sort's `passes` digits, counted
+// in shared memory (a shared atomic a key and digit) and added to the
+// caller's (zeroed) counts once per CTA and nonzero count.
 //
 // carve_apply: three launches over the sorted keys, whose valid samples are
 // the prefix [0, n_valid), cut into tiles of kTileSlots slots (kItems
@@ -45,15 +50,13 @@
 //
 // What bounds them on the H100: bytes.  carve_keys reads 12 B a ray and
 // writes 8 B a slot (67.1 MB over a sweep's 8,388,608 slots: 0.020 ms at
-// 3.35 TB/s).  carve_apply reads the valid keys twice (8 B a valid slot a
-// pass) and reads and writes the carved voxels' two pool words; the
-// directory (512 KB at 131,072 blocks) stays in L2.
+// 3.35 TB/s; the digit counts add 4 B a count).  carve_apply reads the
+// valid keys twice (8 B a valid slot a pass) and reads and writes the
+// carved voxels' two pool words; the directory (512 KB at 131,072 blocks)
+// stays in L2.
 #include "common.cuh"
 
 namespace chad {
-
-constexpr unsigned long long kInvalidKey =
-    ((unsigned long long)kInt32Max << 32) | (unsigned)kInt32Max;
 
 constexpr int kKeysThreads = 256;
 constexpr int kKeysWarps = kKeysThreads / 32;
@@ -72,9 +75,14 @@ carve_keys_kernel(const float* __restrict__ points,
                   const float* __restrict__ pos,
                   const int* __restrict__ origin_blocks, int ns, int sub,
                   int k, float step_m, float res_recip, float trunc,
-                  int extent, unsigned long long* __restrict__ keys,
-                  int* __restrict__ n_valid) {
+                  int extent, int passes,
+                  unsigned long long* __restrict__ keys,
+                  int* __restrict__ n_valid, int* __restrict__ counts) {
   __shared__ int red[kKeysWarps];
+  __shared__ int cta_counts[kMaxSortPasses * kSortBins];
+  for (int i = threadIdx.x; i < passes * kSortBins; i += kKeysThreads)
+    cta_counts[i] = 0;
+  __syncthreads();
   const int j = blockIdx.x * kKeysThreads + threadIdx.x;
   int nv = 0;
   if (j < ns) {
@@ -105,6 +113,12 @@ carve_keys_kernel(const float* __restrict__ points,
                      lx >> 3, ly >> 3, lz >> 3) << 32) |
                 (unsigned)encode_offset(lx & 7, ly & 7, lz & 7);
           ++nv;
+          const unsigned long long v = sort_value(key);
+          for (int q = 0; q < passes; ++q)
+            atomicAdd(&cta_counts[q * kSortBins +
+                                  ((int)(v >> (q * kSortBits)) &
+                                   (kSortBins - 1))],
+                      1);
         }
       }
       keys[(size_t)i * ns + j] = key;
@@ -119,57 +133,9 @@ carve_keys_kernel(const float* __restrict__ points,
     v = __reduce_add_sync(0xffffffffu, v);
     if (lane == 0 && v) atomicAdd(n_valid, v);
   }
-}
-
-// Exclusive scan over the CTA of (a, b): a by sum, b by maximum (b >= -1,
-// -1 the identity).  Every thread gets the totals.  s holds 2 * kWarps
-// ints and may be reused once the call returns.
-template <int kWarps>
-__device__ __forceinline__ void cta_scan(int& a, int& b, int& total_a,
-                                         int& total_b, int* s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = a, y = b;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int xu = __shfl_up_sync(0xffffffffu, x, d);
-    const int yu = __shfl_up_sync(0xffffffffu, y, d);
-    if (lane >= d) {
-      x += xu;
-      y = max(y, yu);
-    }
-  }
-  if (lane == 31) {
-    s[warp] = x;
-    s[kWarps + warp] = y;
-  }
   __syncthreads();
-  if (warp == 0) {
-    int wx = lane < kWarps ? s[lane] : 0;
-    int wy = lane < kWarps ? s[kWarps + lane] : -1;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int xu = __shfl_up_sync(0xffffffffu, wx, d);
-      const int yu = __shfl_up_sync(0xffffffffu, wy, d);
-      if (lane >= d) {
-        wx += xu;
-        wy = max(wy, yu);
-      }
-    }
-    if (lane < kWarps) {
-      s[lane] = wx;
-      s[kWarps + lane] = wy;
-    }
-  }
-  __syncthreads();
-  int xe = __shfl_up_sync(0xffffffffu, x, 1);
-  int ye = __shfl_up_sync(0xffffffffu, y, 1);
-  if (lane == 0) {
-    xe = 0;
-    ye = -1;
-  }
-  a = xe + (warp > 0 ? s[warp - 1] : 0);
-  b = max(ye, warp > 0 ? s[kWarps + warp - 1] : -1);
-  total_a = s[kWarps - 1];
-  total_b = s[2 * kWarps - 1];
-  __syncthreads();
+  for (int i = threadIdx.x; i < passes * kSortBins; i += kKeysThreads)
+    if (cta_counts[i]) atomicAdd(&counts[i], cta_counts[i]);
 }
 
 // A thread's kItems sorted slots from p0 on, and the run and block
@@ -219,7 +185,7 @@ carve_count_kernel(const unsigned long long* __restrict__ keys, int s,
   const Slots q = load_slots(keys, s, nv, p0);
   int nb = __popc(q.bstart), vm = last_bit_pos(q.vstart, p0);
   int tb, tv;
-  cta_scan<kCarveWarps>(nb, vm, tb, tv, red);
+  cta_scan<kCarveWarps, MaxOp>(nb, vm, tb, tv, red);
   if (threadIdx.x == 0) {
     tile_blocks[blockIdx.x] = tb;
     tile_vmax[blockIdx.x] = tv;
@@ -242,7 +208,7 @@ carve_scan_kernel(const int* __restrict__ n_valid, int t_cap,
     vm = max(vm, tile_vmax[t]);
   }
   int blocks, unused;
-  cta_scan<kScanWarps>(sum, vm, blocks, unused, red);
+  cta_scan<kScanWarps, MaxOp>(sum, vm, blocks, unused, red);
   for (int t = t0; t < t1; ++t) {
     const int nb = tile_blocks[t], tv = tile_vmax[t];
     tile_blocks[t] = sum;
@@ -296,7 +262,7 @@ carve_apply_kernel(const unsigned long long* __restrict__ keys, int s,
   const Slots q = load_slots(keys, s, nv, p0);
   int lb = __popc(q.bstart), rs = last_bit_pos(q.vstart, p0);
   int nb, unused;
-  cta_scan<kCarveWarps>(lb, rs, nb, unused, red);
+  cta_scan<kCarveWarps, MaxOp>(lb, rs, nb, unused, red);
   rs = max(rs, tile_vmax[blockIdx.x]);
   const int rank0 = tile_blocks[blockIdx.x] - 1;   // rank of block 0
   if (threadIdx.x == 0) s_bkey[0] = (int)(q.key[0] >> 32);
@@ -349,21 +315,25 @@ carve_apply_kernel(const unsigned long long* __restrict__ keys, int s,
 
 }  // namespace chad
 
+// counts: passes x kSortBins ints, zeroed by the caller, as n_valid.
 extern "C" int chad_carve_keys(const float* points, const int* n_points,
                                const float* position,
                                const int* origin_blocks, int ns, int sub,
                                int k, float step_m, float res_recip,
-                               float trunc, int extent, long long* keys,
-                               int* n_valid, void* stream) {
-  if (ns < 0 || sub < 1 || k < 1) return (int)cudaErrorInvalidValue;
+                               float trunc, int extent, int passes,
+                               long long* keys, int* n_valid, int* counts,
+                               void* stream) {
+  if (ns < 0 || sub < 1 || k < 1 || passes < 1 ||
+      passes > chad::kMaxSortPasses)
+    return (int)cudaErrorInvalidValue;
   if (ns == 0) return 0;
   const dim3 grid((ns + chad::kKeysThreads - 1) / chad::kKeysThreads,
                   (k + chad::kKeysSteps - 1) / chad::kKeysSteps);
   chad::carve_keys_kernel<<<grid, chad::kKeysThreads, 0,
                             (cudaStream_t)stream>>>(
       points, n_points, position, origin_blocks, ns, sub, k, step_m,
-      res_recip, trunc, extent,
-      reinterpret_cast<unsigned long long*>(keys), n_valid);
+      res_recip, trunc, extent, passes,
+      reinterpret_cast<unsigned long long*>(keys), n_valid, counts);
   CHAD_RETURN_LAUNCH_ERROR();
 }
 

@@ -38,6 +38,15 @@ constexpr int kTileThreads = 512;  // threads per tile CTA
 constexpr int kCols = kTile / kTileThreads;   // adjacent columns per thread
 constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kInt32Max = 0x7fffffff;
+// an invalid slot of the carve's int64 sample keys (INT32_MAX << 32 |
+// INT32_MAX), which sorts after every valid key
+constexpr unsigned long long kInvalidKey =
+    ((unsigned long long)kInt32Max << 32) | (unsigned)kInt32Max;
+// carve_sort's digit (carve_sort.cu): kSortBits bits of a valid carve key's
+// sort value bkey << 9 | okey, which has at most 3 * 10 + 9 bits
+constexpr int kSortBits = 8;
+constexpr int kSortBins = 1 << kSortBits;
+constexpr int kMaxSortPasses = (3 * 10 + 9 + kSortBits - 1) / kSortBits;
 constexpr int kSlab = 16;          // list ranks accumulated per pass
 constexpr int kRowLen = 512;       // voxels per 8x8x8 block
 constexpr int kRegRows = 12;       // rows the list phase holds in registers
@@ -64,6 +73,74 @@ __device__ __forceinline__ int compact3_10(int x) {
   x = (x | (x >> 8)) & 0x030000FF;
   x = (x | (x >> 16)) & 0x000003FF;
   return x;
+}
+
+// The combining operations of cta_scan's second value: a maximum over
+// values >= -1 (-1 the identity), or a sum.
+struct MaxOp {
+  static constexpr int kIdentity = -1;
+  __device__ static int apply(int x, int y) { return max(x, y); }
+};
+struct SumOp {
+  static constexpr int kIdentity = 0;
+  __device__ static int apply(int x, int y) { return x + y; }
+};
+
+// Exclusive scan over the CTA of (a, b): a by sum, b by Op.  Every thread
+// gets the totals.  s holds 2 * kWarps ints and may be reused once the call
+// returns.
+template <int kWarps, typename Op>
+__device__ __forceinline__ void cta_scan(int& a, int& b, int& total_a,
+                                         int& total_b, int* s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = a, y = b;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int xu = __shfl_up_sync(0xffffffffu, x, d);
+    const int yu = __shfl_up_sync(0xffffffffu, y, d);
+    if (lane >= d) {
+      x += xu;
+      y = Op::apply(y, yu);
+    }
+  }
+  if (lane == 31) {
+    s[warp] = x;
+    s[kWarps + warp] = y;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int wx = lane < kWarps ? s[lane] : 0;
+    int wy = lane < kWarps ? s[kWarps + lane] : Op::kIdentity;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int xu = __shfl_up_sync(0xffffffffu, wx, d);
+      const int yu = __shfl_up_sync(0xffffffffu, wy, d);
+      if (lane >= d) {
+        wx += xu;
+        wy = Op::apply(wy, yu);
+      }
+    }
+    if (lane < kWarps) {
+      s[lane] = wx;
+      s[kWarps + lane] = wy;
+    }
+  }
+  __syncthreads();
+  int xe = __shfl_up_sync(0xffffffffu, x, 1);
+  int ye = __shfl_up_sync(0xffffffffu, y, 1);
+  if (lane == 0) {
+    xe = 0;
+    ye = Op::kIdentity;
+  }
+  a = xe + (warp > 0 ? s[warp - 1] : 0);
+  b = Op::apply(ye, warp > 0 ? s[kWarps + warp - 1] : Op::kIdentity);
+  total_a = s[kWarps - 1];
+  total_b = s[2 * kWarps - 1];
+  __syncthreads();
+}
+
+// The sort value of a valid carve key: bkey << 9 | okey.
+__device__ __forceinline__ unsigned long long sort_value(
+    unsigned long long key) {
+  return (key >> 32) << 9 | (key & 511ull);
 }
 
 __device__ __forceinline__ int encode_block(int bx, int by, int bz) {

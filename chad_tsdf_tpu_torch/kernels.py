@@ -36,10 +36,10 @@ and kernels of the port's own, with no Pallas kernel behind them:
   one launch (``ops/seg_samples.py``): K1's DDA, signed distances and keys
   where the JAX package leaves the same work to XLA
   (``core/integrate.py`` ``sparse_seg_entry_stream``);
-* ``carve_keys`` and ``carve_apply``, space carving's free-space sample
-  keys and its pool update from the sorted keys (``ops/carve_kernels.py``):
-  the work that the JAX package leaves to XLA (``core/carve.py``) on
-  either side of the carve's one sort.
+* ``carve_keys``, ``carve_sort`` and ``carve_apply``, space carving's
+  free-space sample keys, their keys-only radix sort and the pool update
+  from the sorted keys (``ops/carve_kernels.py``): the work that the JAX
+  package leaves to XLA (``core/carve.py``, its ``lax.sort`` included).
 """
 
 from __future__ import annotations
@@ -81,9 +81,10 @@ _SIGNATURES = {
     "micro_mxu8": [_P] * 4 + [_I] * 4 + [_P] * 3,
     "set_conditional": [_P] * 2,
     "seg_samples": [_P] * 9 + [_I] * 2 + [_F] * 3 + [_I] + [_F] + [_P] * 2,
-    "carve_keys": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_I] + [_P] * 2,
+    "carve_keys": [_P] * 4 + [_I] * 3 + [_F] * 3 + [_I] * 2 + [_P] * 3,
     "carve_apply": [_P] + [_I] + [_P] * 3 + [_I] * 2 + [_F] * 2 +
                    [_P] * 3 + [_I] + [_P],
+    "carve_sort": [_P] + [_I] + [_P] * 2 + [_I] + [_P] * 3 + [_I],
 }
 # C entry points that launch no kernel (not counted), without the stream
 _HOST_SIGNATURES = {

@@ -16,25 +16,27 @@ do.  It is padded to its bucket and put through packed ingest's round
 trip on the card, as the map's graph does.  The two routes are first held
 bit for bit (keys and their count, both pool planes, the touched overflow
 and the three metrics), under the configuration's touched cap and under
-one too small for the carve.  Then the stages are timed (``cuda_ms``:
-CUDA events, median of ``--reps`` calls, each queued behind a spin):
+one too small for the carve, and the sorted keys and the digit counts
+on their own.  Then the stages are timed (``cuda_ms``: CUDA events, median
+of ``--reps`` calls, each queued behind a spin):
 
-* kernel route: ``keys`` (``carve_keys``), ``sort`` (``torch.sort`` of the
-  int64 keys), ``apply`` (``carve_apply``: count, scan, apply), ``whole``
-  (``carve_step``);
+* kernel route: ``keys`` (``carve_keys``, with the sort's digit counts),
+  ``sort`` (``carve_sort``), ``apply`` (``carve_apply``: count, scan,
+  apply), ``whole`` (``carve_step``);
 * plain route (the sequence every carve ran before the kernels):
-  ``keys`` (``carve_keys_plain``), ``sort``, ``entries``
-  (``sorted_entries``), ``lookup`` (``lookup_blocks``), ``apply``
-  (``apply_entries`` and ``lost_samples``), ``whole``
+  ``keys`` (``carve_keys_plain``), ``sort`` (``torch.sort`` of the int64
+  keys), ``entries`` (``sorted_entries``), ``lookup`` (``lookup_blocks``),
+  ``apply`` (``apply_entries`` and ``lost_samples``), ``whole``
   (``carve_step_plain``).
 
 Each kernel's bound is bytes over 3.35 TB/s: ``carve_keys`` reads 12 B a
-carve ray and writes 8 B a sample slot; ``carve_apply`` reads 8 B a valid
-sample (the sorted keys, once), 8 B a looked-up block (its directory key
-and slot) and reads and writes the two pool words of each carved voxel
-(16 B).  Prints the card's name and power limit, then a JSON line.  No
-host read inside a timed call; the stage functions are called directly,
-so nothing here adds to the code the map runs.
+carve ray and writes 8 B a sample slot; ``carve_sort`` reads and writes 8
+B a slot (the least any sort of the slots moves); ``carve_apply`` reads 8
+B a valid sample (the sorted keys, once), 8 B a looked-up block (its
+directory key and slot) and reads and writes the two pool words of each
+carved voxel (16 B).  Prints the card's name and power limit, then a
+JSON line.  No host read inside a timed call; the stage functions are
+called directly, so nothing here adds to the code the map runs.
 """
 
 from __future__ import annotations
@@ -102,15 +104,26 @@ def scene(dev, config: MapConfig = PARKED):
 def hold(state, points, n, position, config: MapConfig) -> dict:
     """Carve on the kernel route and on the plain route, each on a copy of
     ``state``, and raise unless they agree bit for bit: the keys and their
-    count, both pool planes, ``touched_overflow`` and the metrics.
-    Returns the counts of the carve (ints)."""
+    count (and on the card the digit counts), the sorted keys, both pool
+    planes, ``touched_overflow`` and the metrics.  Returns the counts of
+    the carve (ints)."""
     ob = state.origin_blocks
-    key, nv = carve.carve_keys(points, n, position, ob, config)
+    key, nv, counts = carve.carve_keys(points, n, position, ob, config)
     pkey, pnv = carve.carve_keys_plain(points, n, position, ob, config)
     if not (torch.equal(key, pkey) and int(nv) == int(pnv)):
         bad = int((key != pkey).sum())
         raise AssertionError(f"carve_keys: {bad} keys differ, n_valid "
                              f"{int(nv)} against {int(pnv)}")
+    if counts is not None and not torch.equal(
+            counts, carve.digit_counts_plain(pkey, config)):
+        raise AssertionError("carve_keys: digit counts differ from the "
+                             "plain counts")
+    skey = torch.sort(pkey).values
+    got_sorted = carve.sort_keys(key, nv, counts, config)
+    if not torch.equal(got_sorted, skey):
+        bad = int((got_sorted != skey).sum())
+        raise AssertionError(f"sort_keys: {bad} of {skey.numel()} slots "
+                             f"differ from torch.sort")
     got, gm = carve.carve_step(clone_state(state), points, n, position,
                                config)
     want, wm = carve.carve_step_plain(clone_state(state), points, n,
@@ -126,7 +139,6 @@ def hold(state, points, n, position, config: MapConfig) -> dict:
     if gm != wm:
         raise AssertionError(f"carve metrics {gm} against the plain "
                              f"route's {wm}")
-    skey = torch.sort(pkey).values
     bkeys = skey[:int(pnv)] >> 32
     blocks = int(torch.unique_consecutive(bkeys).numel())
     return dict(gm, n_valid=int(nv), slots=key.numel(), blocks=blocks,
@@ -138,11 +150,14 @@ def bounds_ms(counts: dict, config: MapConfig, rays: int) -> dict:
     """Each kernel's least time on the H100 (module docstring)."""
     looked = min(counts["blocks"], config.touched_capacity)
     keys_b = 12 * rays + 8 * counts["slots"]
+    sort_b = 16 * counts["slots"]
     apply_b = 8 * counts["n_valid"] + 8 * looked + \
         16 * counts["n_carved_voxels"]
     return {"carve_keys": keys_b / HBM_BYTES_PER_S * 1e3,
+            "carve_sort": sort_b / HBM_BYTES_PER_S * 1e3,
             "carve_apply": apply_b / HBM_BYTES_PER_S * 1e3,
-            "carve_keys_bytes": keys_b, "carve_apply_bytes": apply_b}
+            "carve_keys_bytes": keys_b, "carve_sort_bytes": sort_b,
+            "carve_apply_bytes": apply_b}
 
 
 def stage_times(state, points, n, position, config: MapConfig,
@@ -150,8 +165,8 @@ def stage_times(state, points, n, position, config: MapConfig,
     """Device ms of each stage on both routes (module docstring); the pool
     of ``state`` gains the carves the timing runs."""
     ob = state.origin_blocks
-    key, nv = carve.carve_keys(points, n, position, ob, config)
-    skey = torch.sort(key).values
+    key, nv, counts = carve.carve_keys(points, n, position, ob, config)
+    skey = carve.sort_keys(key, nv, counts, config)
     e_b, e_o, e_c, e_end = carve.sorted_entries(skey)
     looked = carve.lookup_blocks(state, e_b, config)
     flags, _, found, slots, first_lost, _ = looked
@@ -164,7 +179,8 @@ def stage_times(state, points, n, position, config: MapConfig,
     kernel = {
         "keys": cuda_ms(lambda: carve.carve_keys(points, n, position, ob,
                                                  config), reps),
-        "sort": cuda_ms(lambda: torch.sort(key), reps),
+        "sort": cuda_ms(lambda: carve.sort_keys(key, nv, counts, config),
+                        reps),
         "apply": cuda_ms(lambda: carve.carve_apply(state, skey, nv, config),
                          reps),
         "whole": cuda_ms(lambda: carve.carve_step(state, points, n,
@@ -173,7 +189,7 @@ def stage_times(state, points, n, position, config: MapConfig,
     plain = {
         "keys": cuda_ms(lambda: carve.carve_keys_plain(
             points, n, position, ob, config), reps),
-        "sort": kernel["sort"],
+        "sort": cuda_ms(lambda: torch.sort(key), reps),
         "entries": cuda_ms(lambda: carve.sorted_entries(skey), reps),
         "lookup": cuda_ms(lambda: carve.lookup_blocks(state, e_b, config),
                           reps),

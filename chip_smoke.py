@@ -53,13 +53,15 @@ runs, failing with a non-zero exit on the first error:
    ray leaving it and a zero-length ray: keys (in order and sorted),
    ``n_valid`` and the sample overflow bit-equal to its plain version, a
    second launch bit-equal, timed beside the plain version with its bound;
-   the carve's two kernels (``ops/carve_kernels.py``) on a parked sweep's
-   carve into the map of another sweep from the same spot
+   the carve's three kernels (``ops/carve_kernels.py``) on a parked
+   sweep's carve into the map of another sweep from the same spot
    (``scripts/carve_stages.py``, at ``kitti_parked_carve``'s map
-   configuration): keys, ``n_valid``, both pool planes,
+   configuration): keys, ``n_valid``, the digit counts, the sorted keys
+   (``carve_sort`` against ``torch.sort``), both pool planes,
    ``touched_overflow`` and the three metrics bit-equal to the plain route,
    under the cell's touched cap and one that loses blocks, each kernel timed
-   beside the plain stages it replaces, with its bound;
+   beside the plain stages it replaces, with its bound (the sort beside
+   ``torch.sort``, its library yardstick);
 3. the main path: ``TSDFMap(0.05, 0.1, device="cuda")`` at the default
    MapConfig inserts the 2^20-point r = 5 m sphere (seed 420, bench.py's
    cloud) six times (the first runs eagerly and captures the map's CUDA
@@ -209,11 +211,11 @@ a replay, and K1, K3, K4 and K5 not at all; and before each of phase 8's
 ``set_conditional`` must launch and K1, the general K4 and
 ``seg_samples`` not at all.
 Phases 10-12 reset them just before their own inserts and read them right
-after (K2, ``seg_samples``, ``carve_keys`` and ``carve_apply`` twice each on
-the carved stream, the eager scan and the capture, and its graphs once each
-a replay; K2 on the checkpoint's 2 scans, K1-K3 on the loop closure's
-sphere passes); phase 13 just before one N = 4 dense insert
-(K1-K3) and the N = 4 stream (K2, K3).
+after (K2, ``seg_samples``, ``carve_keys``, ``carve_sort`` and
+``carve_apply`` twice each on the carved stream, the eager scan and the
+capture, and its graphs once each a replay; K2 on the checkpoint's 2
+scans, K1-K3 on the loop closure's sphere passes); phase 13 just before
+one N = 4 dense insert (K1-K3) and the N = 4 stream (K2, K3).
 The ``kernels`` JSON line (before the card's name and the last line) gives
 each kernel's launches in the run that drives it: phase 3 for K1-K3, phase 4
 for K4-K5, phase 8's ``sample_tile`` stream for the sorted K4, phase 8's
@@ -287,10 +289,12 @@ KERNELS = {
     # no TPU kernel: the seg insert's samples, which XLA computes there
     "seg_samples": ("chad_tsdf_tpu_torch/csrc/seg_samples.cu",
                     "chad_tsdf_tpu/core/integrate.py:759"),
-    # no TPU kernel: the carve's keys and pool update, which XLA computes
-    # there
+    # no TPU kernel: the carve's keys, their sort (lax.sort) and the pool
+    # update, which XLA computes there
     "carve_keys": ("chad_tsdf_tpu_torch/csrc/carve.cu",
                    "chad_tsdf_tpu/core/carve.py:121"),
+    "carve_sort": ("chad_tsdf_tpu_torch/csrc/carve_sort.cu",
+                   "chad_tsdf_tpu/core/carve.py:139"),
     "carve_apply": ("chad_tsdf_tpu_torch/csrc/carve.cu",
                     "chad_tsdf_tpu/core/carve.py:121"),
 }
@@ -754,7 +758,8 @@ def check_carve_kernels(results):
     """Phase 2, the carve's kernels (``ops/carve_kernels.py``) against the
     plain route on ``scripts/carve_stages.py``'s scene (a parked sweep
     carved into the map of another from the same spot, at
-    ``kitti_parked_carve``'s map configuration): keys and their count,
+    ``kitti_parked_carve``'s map configuration): keys, their count and
+    digit counts, the sorted keys (``carve_sort`` against ``torch.sort``),
     both pool planes, ``touched_overflow`` and the metrics bit for bit,
     under the cell's touched cap and one that loses blocks; then each
     kernel timed beside its plain stages, with its bound."""
@@ -778,6 +783,11 @@ def check_carve_kernels(results):
         "max_abs_err": 0.0, "ms": ms["kernel"]["keys"],
         "plain_ms": plain["keys"], "bound_ms": b["carve_keys"],
         "bound_by": "bytes", "slots": counts["slots"]}
+    results["carve_sort"] = {
+        "max_abs_err": 0.0, "ms": ms["kernel"]["sort"],
+        "plain_ms": plain["sort"], "library_ms": plain["sort"],
+        "bound_ms": b["carve_sort"], "bound_by": "bytes",
+        "slots": counts["slots"], "n_valid": counts["n_valid"]}
     results["carve_apply"] = {
         "max_abs_err": 0.0, "ms": ms["kernel"]["apply"],
         "plain_ms": plain["entries"] + plain["lookup"] + plain["apply"],
@@ -1643,9 +1653,9 @@ def carve_scene():
 
 
 # what a carving map's graphs launch a replay: the seg insert's K2 and
-# sample kernel, then the carve's two kernels
+# sample kernel, then the carve's three kernels
 CARVE_GRAPH_LAUNCHES = {"estimate_normals": 1, "seg_samples": 1,
-                        "carve_keys": 1, "carve_apply": 1}
+                        "carve_keys": 1, "carve_sort": 1, "carve_apply": 1}
 
 
 def run_carve():
@@ -2444,7 +2454,8 @@ def run_sharded(tmp):
 
 
 # the CUDA symbol each kernel's wrapper launches once a call (the profiler's
-# names)
+# names; carve_sort's pass kernel runs once a digit, five times a call at
+# block_bits 10)
 KERNEL_SYMBOLS = {
     "fused_tile_partials": ("fused_tile_kernel",),
     "estimate_normals": ("normals_combine_kernel",),
@@ -2455,6 +2466,7 @@ KERNEL_SYMBOLS = {
     "set_conditional": ("set_conditional_kernel",),
     "seg_samples": ("seg_samples_kernel",),
     "carve_keys": ("carve_keys_kernel",),
+    "carve_sort": ("carve_sort_pass_kernel",),
     "carve_apply": ("carve_apply_kernel",),
 }
 GRAPH_FIELDS = ("dir_keys", "dir_slots", "n_blocks", "pool_sd", "pool_w",
@@ -2861,7 +2873,7 @@ def run_map_graph():
         (g,) = graphs[:1]
         if name.startswith("stream carve"):
             carving = {k: g.launches.get(k, 0)
-                       for k in ("carve_keys", "carve_apply")}
+                       for k in ("carve_keys", "carve_sort", "carve_apply")}
             want = 1 if name.endswith("on") else 0
             require(set(carving.values()) == {want},
                     f"{name}: the carve's kernels a replay {carving}")
@@ -3244,6 +3256,7 @@ def main() -> int:
                     seg_samples=stream_launches["seg_samples"],
                     # the carved stream of phase 10
                     carve_keys=carve_launches["carve_keys"],
+                    carve_sort=carve_launches["carve_sort"],
                     carve_apply=carve_launches["carve_apply"],
                     **{k: micro_launches[k] for k in (
                         "micro_stagea_phases", "micro_tile_accum",
