@@ -17,7 +17,10 @@ Numbers (each with the limit the workload file gives it):
   reference's mean;
 * ``mesh_off_share``: the share of the last saved mesh's vertices and the
   reference's marching-cubes vertices that have no vertex of the other
-  side within 1e-5 m.
+  side within 1e-5 m.  The reference meshes what a save fuses
+  (:func:`fused_samples`): every submap of the run's inserts, finished or
+  active, each coded as a finished submap keeps it; only the first where
+  the configuration sets ``mesh_first_submap_only``.
 """
 
 from __future__ import annotations
@@ -143,14 +146,44 @@ def leaf_numbers(prog, ref: R.Voxels, sdf_trunc: float) -> dict:
             "leaf_off_share": _share(pcode[ia] != code[ib])}
 
 
-def mesh_numbers(prog_vertices: np.ndarray, ref: R.Voxels, sdf_res: float,
-                 sdf_trunc: float) -> dict:
-    """``mesh_off_share`` of a saved mesh against the reference's vertices
-    over the reference voxels' 8-bit values."""
+def fused_samples(parts: list, sdf_trunc: float):
+    """The samples a save meshes from its submaps, given as (keys int64
+    ascending and unique, sd codes, weight codes) each: every sd code
+    decoded (``decode_sd``); a voxel that several submaps hold takes the
+    mean of their decoded values weighted by ``max(weight code, 1)``,
+    worked out in f64 and rounded to f32 (``TSDFMap.voxel_samples``'
+    documented fusion).  A voxel of one submap keeps its decoded value
+    exactly: an f32 value times a weight under 2^8, and that over the
+    weight, are exact in f64.  Returns (keys int64 ascending, sd f32)."""
+    keys = torch.cat([k for k, _, _ in parts])
+    sd = torch.cat([R.decode_sd(c, sdf_trunc) for _, c, _ in parts])
+    w = torch.cat([wc.clamp(min=1) for _, _, wc in parts]).to(torch.float64)
+    u, inv = torch.unique(keys, return_inverse=True)
+    wsum = torch.zeros(u.shape[0], dtype=torch.float64,
+                       device=keys.device).index_add_(0, inv, w)
+    sdw = torch.zeros_like(wsum).index_add_(0, inv, sd.to(torch.float64) * w)
+    return u, (sdw / wsum).to(torch.float32)
+
+
+def mesh_reference(groups: list, sem: R.Semantics) -> np.ndarray:
+    """The reference's marching-cubes vertices (M, 3) f32 of a save of the
+    submaps whose reference voxels are ``groups``, oldest first: of the
+    first alone where the configuration meshes the first submap only, as
+    the program does."""
+    if sem.mesh_first_submap_only:
+        groups = groups[:1]
+    # each submap coded as a finished submap keeps it; a save finalizes the
+    # active submap's snapshot into the same codes
+    keys, sd = fused_samples(
+        [(g.keys, *R.leaf_codes(g, sem.sdf_trunc)) for g in groups],
+        sem.sdf_trunc)
+    return R.mesh_vertices(keys, sd, sem.sdf_res).cpu().numpy()
+
+
+def mesh_numbers(prog_vertices: np.ndarray, rv: np.ndarray) -> dict:
+    """``mesh_off_share`` of a saved mesh's vertices against the
+    reference's, ``rv`` (:func:`mesh_reference`)."""
     from scipy.spatial import cKDTree
-    code, _ = R.leaf_codes(ref, sdf_trunc)
-    rv = R.mesh_vertices(ref.keys, R.decode_sd(code, sdf_trunc),
-                         sdf_res).cpu().numpy()
     if len(rv) == 0 or len(prog_vertices) == 0:
         return {"mesh_off_share": 0.0 if len(rv) == len(prog_vertices)
                 else 1.0}
@@ -172,6 +205,13 @@ def merge(numbers: list) -> dict:
             else:
                 out[k] = max(out[k], v)
     return out
+
+
+def template_of(traffic, i: int) -> int:
+    """The template of scan ``i``: the generator's ``template(i)`` where it
+    has one, else ``i % len(templates)``."""
+    pick = getattr(traffic, "template", None)
+    return pick(i) if pick is not None else i % len(traffic.templates)
 
 
 class Reference:
@@ -201,7 +241,7 @@ class Reference:
         mult: dict = {}             # ("band" | "carve", key) -> multiplicity
         allocated = torch.zeros(0, dtype=torch.int64, device=self.device)
         for i in steps:
-            k = (i % len(self.traffic.templates),
+            k = (template_of(self.traffic, i),
                  tuple(self.traffic.position(i).tolist()))
             if k not in band:
                 keys, sd = R.scan_samples(self.traffic.points(i),

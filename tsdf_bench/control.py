@@ -5,12 +5,13 @@ configurations state, judged by the same numbers and limits as a run.
     python3 -m tsdf_bench.control --workload kitti_drive --seeds 1 2 3
 
 For each seed it makes the cell's traffic, takes the inserts of a run of
-``--steps`` steps (the warm-up and a window's worth), and compares what the
-reference computes in bfloat16 (the normal fit and the signed distances;
-``reference/tsdf_ref.py``) with what it computes in float64, for the
-active submap, the last ``check.submaps`` finished submaps and, in a cell
-that saves, the mesh.  It prints one JSON line a seed: the numbers, their
-limits and whether the control came out correct (it must not).  The
+``--steps`` steps (the lead-in, the warm-up and a window's worth), and
+compares what the reference computes in bfloat16 (the normal fit and the
+signed distances; ``reference/tsdf_ref.py``) with what it computes in
+float64, for the active submap, the last ``check.submaps`` finished
+submaps and, in a cell that saves, the mesh of every submap
+(``check.mesh_reference``).  It prints one JSON line a seed: the numbers,
+their limits and whether the control came out correct (it must not).  The
 program is not run.
 """
 
@@ -31,29 +32,34 @@ def control_numbers(name: str, seed: int, steps: int | None = None,
     _, _, cell, conf = run.cell_spec(name, overrides)
     sem = R.Semantics.from_map_config(conf["map_config"])
     traffic = run.traffic_of(cell, conf, seed)
-    steps = cell["warm_steps"] + 70 if steps is None else steps
+    if steps is None:
+        steps = cell.get("lead_in", 0) + cell["warm_steps"] + 70
     groups = R.submap_groups([traffic.position(i) for i in range(steps)],
                              sem)
     ref = check.Reference(traffic, sem, device)
     low = check.Reference(traffic, sem, device, dtype)
+    saves = cell["step"] == "insert_save"
+    # every group where the cell saves (the mesh fuses them all)
+    need = range(len(groups)) if saves else [len(groups) - 1]
+    want = {j: ref.voxels(groups[j]) for j in need}
+    got = {j: low.voxels(groups[j]) for j in need}
     numbers = []
-    want, got = ref.voxels(groups[-1]), low.voxels(groups[-1])
-    as_prog = (got.keys.cpu().numpy(), got.sums.cpu().numpy(),
-               got.counts.cpu().numpy().astype(float))
-    numbers.append(check.active_numbers(as_prog, want))
-    if cell["step"] == "insert_save":
-        code, _ = R.leaf_codes(got, sem.sdf_trunc)
-        verts = R.mesh_vertices(got.keys, R.decode_sd(code, sem.sdf_trunc),
-                                sem.sdf_res).cpu().numpy()
-        numbers.append(check.mesh_numbers(verts, want, sem.sdf_res,
-                                          sem.sdf_trunc))
-    for g in groups[:-1][-cell["check"]["submaps"]:] \
-            if cell["check"]["submaps"] else []:
-        want, got = ref.voxels(g), low.voxels(g)
-        code, wcode = R.leaf_codes(got, sem.sdf_trunc)
+    last = got[len(groups) - 1]
+    as_prog = (last.keys.cpu().numpy(), last.sums.cpu().numpy(),
+               last.counts.cpu().numpy().astype(float))
+    numbers.append(check.active_numbers(as_prog, want[len(groups) - 1]))
+    if saves:
+        numbers.append(check.mesh_numbers(
+            check.mesh_reference([got[j] for j in need], sem),
+            check.mesh_reference([want[j] for j in need], sem)))
+    n = cell["check"]["submaps"]
+    for j in range(len(groups) - 1)[-n:] if n else []:
+        if j not in want:
+            want[j], got[j] = ref.voxels(groups[j]), low.voxels(groups[j])
+        code, wcode = R.leaf_codes(got[j], sem.sdf_trunc)
         numbers.append(check.leaf_numbers(
-            (got.keys.cpu().numpy(), code.cpu().numpy(),
-             wcode.cpu().numpy()), want, sem.sdf_trunc))
+            (got[j].keys.cpu().numpy(), code.cpu().numpy(),
+             wcode.cpu().numpy()), want[j], sem.sdf_trunc))
     return check.merge(numbers)
 
 

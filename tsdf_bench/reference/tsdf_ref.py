@@ -80,6 +80,7 @@ class Semantics:
     carve_stride: float = 2.0
     carve_subsample: int = 2
     carve_weight: float = 1.0
+    mesh_first_submap_only: bool = False
 
     def __post_init__(self):
         if self.carve_steps > 0 and self.carve_weight != 1.0:

@@ -9,17 +9,19 @@ The cell is an entry of ``workloads`` in ``BENCHMARK.json``; its file
 its inputs), the traffic generator (``traffic/<generator>.py``) and its
 parameters, the step
 (``insert``, or ``insert_save``: an insert then ``TSDFMap.save``), the
-warm-up and traced steps, and the limits of the numbers that decide
-``correct`` (``check.py``).  Every metric is read by
+lead-in (``lead_in``, optional: steps that only insert, before the
+warm-up), the warm-up and traced steps, and the limits of the numbers
+that decide ``correct`` (``check.py``).  Every metric is read by
 ``metrics/<name>.py`` (the part of the name before the first dot), from
 the run's record.
 
 A run: the traffic from ``--seed``; one ``TSDFMap`` on the card; the
-warm-up steps (every shape the cell uses, rotations included); with
-``--trace 1`` a profiled slice of ``trace_steps`` steps; then the window,
-a closed loop of steps for ``--seconds`` closed by ``stats()`` (pending
-submaps finished, the device synchronised).  Then the program's outputs
-are read back, the map is freed, and the plain reference judges them.
+lead-in; the warm-up steps (every shape the cell uses, rotations
+included); with ``--trace 1`` a profiled slice of ``trace_steps`` steps;
+then the window, a closed loop of steps for ``--seconds`` closed by
+``stats()`` (pending submaps finished, the device synchronised).  Then
+the program's outputs are read back, the map is freed, and the plain
+reference judges them.
 The last line of standard output is the result, one JSON object.
 """
 
@@ -151,8 +153,10 @@ class Runner:
         self.n = 0                   # steps taken
         self.positions: list = []    # every insert's index, in order
 
-    def step(self, out: dict | None = None, h0: float = 0.0) -> None:
-        """One step; ``out`` gets its host times (from ``h0``)."""
+    def step(self, out: dict | None = None, h0: float = 0.0,
+             save: bool = True) -> None:
+        """One step; ``out`` gets its host times (from ``h0``).  With
+        ``save`` False the step only inserts (a lead-in step)."""
         pts, pos, _ = self.traffic.step(self.n)
         n_sub = len(self.map.submaps)
         t0 = time.perf_counter()
@@ -164,7 +168,7 @@ class Runner:
         if out is not None:
             out.update(t_call=t0 - h0, call_s=t1 - t0, points=len(pts),
                        grew=len(self.map.submaps) > n_sub)
-        if self.save:
+        if self.save and save:
             ok = True
             try:
                 with record_function("bench.save"):
@@ -248,7 +252,7 @@ def traced_slice(run: Runner, n_steps: int) -> dict:
     with profile(activities=acts) as prof:
         with record_function("bench.slice"):
             for _ in range(n_steps):
-                templates.append(run.n % len(run.traffic.templates))
+                templates.append(check.template_of(run.traffic, run.n))
                 with record_function("bench.step"):
                     run.step()
             run.sync()
@@ -317,13 +321,16 @@ def check_outputs(run: Runner, cell: dict, conf: dict, rec: Record,
                   seed: int, first_window_sub: int, device) -> dict:
     """Read the program's outputs, free the map, and compare them with the
     reference.  Returns the numbers compared (a submap count that differs
-    from the rotation policy's counts in ``w_mismatch``)."""
+    from the rotation policy's counts in ``w_mismatch``).  The finished
+    submaps checked are drawn from those the window finished, or, where it
+    finished none, from those finished before it."""
     sem = tsdf_ref.Semantics.from_map_config(conf["map_config"])
     m = run.map
     active = check.read_active(m.state, sem.block_bits)
     groups = tsdf_ref.submap_groups(
         [run.traffic.position(i) for i in run.positions], sem)
-    finished = list(range(first_window_sub, len(m.submaps)))
+    finished = list(range(first_window_sub, len(m.submaps))) or \
+        list(range(len(m.submaps)))
     rng = np.random.default_rng([seed % (1 << 63), 3])
     pick = sorted(rng.choice(finished, min(len(finished),
                                            cell["check"]["submaps"]),
@@ -341,14 +348,17 @@ def check_outputs(run: Runner, cell: dict, conf: dict, rec: Record,
     numbers = []
     if n_submaps != len(groups) - 1:
         numbers.append({"w_mismatch": abs(n_submaps - len(groups) + 1)})
-    active_ref = ref.voxels([run.positions[i] for i in groups[-1]])
-    numbers.append(check.active_numbers(active, active_ref))
+    # each group's reference voxels, once; a save meshes every group
+    last = len(groups) - 1
+    need = range(len(groups)) if run.save else [last, *pick]
+    vox = {j: ref.voxels([run.positions[i] for i in groups[j]])
+           for j in need}
+    numbers.append(check.active_numbers(active, vox[last]))
     if run.save:
-        numbers.append(check.mesh_numbers(verts, active_ref, sem.sdf_res,
-                                          sem.sdf_trunc))
+        rv = check.mesh_reference([vox[j] for j in need], sem)
+        numbers.append(check.mesh_numbers(verts, rv))
     for j in pick:
-        v = ref.voxels([run.positions[i] for i in groups[j]])
-        numbers.append(check.leaf_numbers(leaves[j], v, sem.sdf_trunc))
+        numbers.append(check.leaf_numbers(leaves[j], vox[j], sem.sdf_trunc))
     rec.touched = dict(ref.touched)
     rec.valid_points = {k: len(run.traffic.templates[k])
                         for k in rec.touched}
@@ -379,6 +389,8 @@ def run_record(name: str, seed: int, seconds: float, trace: bool,
         torch.cuda.reset_peak_memory_stats()
     traffic = traffic_of(cell, conf, seed)
     run = Runner(cell, conf, traffic, device)
+    for _ in range(cell.get("lead_in", 0)):
+        run.step(save=False)
     for _ in range(cell["warm_steps"]):
         run.step()
     run.sync()

@@ -32,10 +32,15 @@ def at_root(monkeypatch):
     monkeypatch.chdir(ROOT)
 
 
-# A cell whose files the harness keeps although BENCHMARK.json does not
-# list it (PERF.md, Open questions): its entry as a manifest would give it.
+# Cells whose files the harness keeps although BENCHMARK.json does not
+# list them (PERF.md, Open questions): their entries as a manifest would
+# give them.
 KEPT = [{"name": "kitti_drive", "config": "kitti_hdl64", "traffic": "drive",
-         "chips": 1}]
+         "chips": 1},
+        {"name": "kitti_drive_save", "config": "kitti_hdl64",
+         "traffic": "drive_stop_save", "chips": 1},
+        {"name": "sphere_save", "config": "sphere_1m",
+         "traffic": "insert_save", "chips": 1}]
 
 
 @pytest.fixture

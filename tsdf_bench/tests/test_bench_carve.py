@@ -14,8 +14,7 @@ import pytest
 import torch
 
 import chad_tsdf_tpu_torch
-from chad_tsdf_tpu_torch.core import carve as carve_mod
-from chad_tsdf_tpu_torch.core import map as map_mod
+from chad_tsdf_tpu_torch.core import graph as graph_mod
 from tsdf_bench import check, control, run, trial
 from tsdf_bench.reference import tsdf_ref as R
 from tsdf_bench.traffic import lidar
@@ -64,17 +63,28 @@ def test_carving_run_is_correct(car, seed):
 
 
 def carve_first(monkeypatch):
-    """Each insert's carve before its band, the carve after it a no-op."""
-    step = map_mod.integrate.insert_step_deferred
-    carve = carve_mod.carve_step
+    """Each insert's carve before its band (inside ``InsertGraph.run_step``,
+    on the padded points the step ingests), the carve after it a no-op that
+    writes zero carve metrics."""
+    step = graph_mod.InsertGraph.run_step
+    carve = graph_mod.InsertGraph.run_carve
 
-    def carve_then_band(state, pts, n_t, pos_t, cfg):
-        state, _ = carve(state, pts, n_t, pos_t, cfg)
-        return step(state, pts, n_t, pos_t, cfg)
-    monkeypatch.setattr(map_mod.integrate, "insert_step_deferred",
-                        carve_then_band)
-    monkeypatch.setattr(map_mod.carve, "carve_step",
-                        lambda state, *args: (state, {}))
+    def carve_then_band(self):
+        rows = torch.arange(self.points.shape[0], dtype=torch.int32)
+        pts = torch.where((rows < self.n_points)[:, None], self.points, 0.0)
+        if self.packed:
+            pts = graph_mod.integrate.unpack_points(
+                graph_mod.integrate.pack_points_device(
+                    pts, self.position, self.config.sdf_res),
+                self.position, self.config)
+        self._pts = pts
+        carve(self)
+        step(self)
+
+    def no_carve(self):
+        self.out[len(graph_mod.INSERT_KEYS):].zero_()
+    monkeypatch.setattr(graph_mod.InsertGraph, "run_step", carve_then_band)
+    monkeypatch.setattr(graph_mod.InsertGraph, "run_carve", no_carve)
 
 
 def in_config(change):
@@ -183,12 +193,14 @@ def test_carve_counts_only_in_allocated_blocks():
 class ParentTraffic(lidar.Traffic):
     """``lidar.Traffic`` as it was before the street took movers and a
     lane and before ``step`` added the pose over flat rows, kept verbatim
-    but for ``self.lane``, which ``pose`` now reads."""
+    but for ``self.lane`` and ``self.stop_after``, which ``pose`` now
+    reads."""
 
     def __init__(self, conf: dict, params: dict, seed: int):
         sensor, world = conf["sensor"], conf["world"]
         self.speed = float(params["speed_m"])
         self.lane = 0.0
+        self.stop_after = None
         self.mount = float(sensor["mount_height_m"])
         n_templates = int(params["templates"])
         period = float(world["period_m"])

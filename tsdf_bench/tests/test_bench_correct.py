@@ -21,6 +21,10 @@ SMALL = {
                     "map_config": LIDAR_MAP},
     "kitti_parked": {"sensor": {"azimuths": 96}, "warm_steps": 8,
                      "map_config": LIDAR_MAP},
+    # two finished submaps and the active one when the window starts
+    "kitti_drive_save": {"sensor": {"azimuths": 96}, "lead_in": 16,
+                         "params": {"stop_after": 16}, "warm_steps": 1,
+                         "map_config": LIDAR_MAP},
     "sphere_insert": {"cloud": {"points": 4096}, "warm_steps": 8,
                       "map_config": SPHERE_MAP},
     "sphere_save": {"cloud": {"points": 4096}, "warm_steps": 2,
@@ -46,7 +50,7 @@ def test_sound_run_is_correct(cell):
     out = one_run(cell)
     assert out["failed"] == 0
     assert out["correct"], out["checks"]
-    if cell == "kitti_drive":
+    if cell in ("kitti_drive", "kitti_drive_save"):
         assert "leaf_off_share" in out["checks"]
 
 

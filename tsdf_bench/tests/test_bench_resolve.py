@@ -1,4 +1,5 @@
-"""Every cell resolves its files and readers by name."""
+"""Every cell, listed in BENCHMARK.json or kept beside it, resolves its
+files and readers by name."""
 
 import importlib
 import json
@@ -8,12 +9,14 @@ import pytest
 
 from tsdf_bench import run
 
+from .conftest import KEPT
+
 with open(os.path.join(os.path.dirname(run.HERE), "BENCHMARK.json")) as _fh:
     CELLS = [w["name"] for w in json.load(_fh)["workloads"]]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_cell_resolves(cell):
+@pytest.mark.parametrize("cell", CELLS + [w["name"] for w in KEPT])
+def test_cell_resolves(cell, kept_cells):
     bench, entry, spec, conf = run.cell_spec(cell)
     assert spec["config"] == entry["config"] == conf["name"]
     gen = importlib.import_module(f"tsdf_bench.traffic.{spec['generator']}")

@@ -133,7 +133,7 @@ def test_reduce_trace_is_unchanged():
                       ["host: bench.step", pytest.approx(10e-6)]]}
 
 
-def test_trace_spans_on_the_cpu():
+def test_trace_spans_on_the_cpu(kept_cells):
     """``trace_spans`` on a small ``sphere_save`` on the CPU: every save's
     stage spans and its self time make up the save, the idle time (all of
     the slice, with no device) is split by span, and the turns time the

@@ -7,8 +7,9 @@ import pytest
 
 from tsdf_bench import run
 from tsdf_bench.metrics import (device_idle_pct, finalize_scan_ms,
-                                insert_call_ms, points_per_s, save_ms,
-                                scan_p95_ms, scans_per_s)
+                                insert_call_ms, mc_ms, ply_ms, points_per_s,
+                                save_ms, scan_p95_ms, scans_per_s,
+                                voxel_samples_ms)
 
 
 def test_latency_is_event_end_less_call_start():
@@ -44,6 +45,18 @@ def test_end_to_end_readers():
 def test_finalize_reads_nothing_without_finishes():
     assert finalize_scan_ms.read(record([3.0, 4.0], [False, False]),
                                  "") is None
+
+
+@pytest.mark.parametrize("mod,key", [(voxel_samples_ms, "voxel_samples_ms"),
+                                     (mc_ms, "mc_ms"), (ply_ms, "ply_ms")])
+def test_save_split_readers(mod, key):
+    """The mean of ``last_metrics[key]`` over the window's saves; nothing
+    where no step saved."""
+    rec = record([1.0, 2.0, 3.0], [False] * 3)
+    for s, ms in zip(rec.steps, (10.0, 20.0, 60.0)):
+        s["save_metrics"] = {key: ms}
+    assert mod.read(rec, "") == pytest.approx(30.0)
+    assert mod.read(record([1.0], [False]), "") is None
 
 
 def ev(start, end, name="k"):

@@ -21,7 +21,15 @@ azimuths, elevations, ranges, noise, mount height) are the configuration's
   sweep ``i % templates`` moved to the pose ``(speed_m * i, lane_y_m,
   0)``: exactly what the sensor sees there, up to the noise, as the sensor
   software moves a sweep into the world frame.  ``speed_m`` 0 is a parked
-  vehicle.
+  vehicle;
+* with ``stop_after``, a vehicle that drives, then stops: scans ``i <
+  stop_after`` are as above, and scan ``i >= stop_after`` is park sweep
+  ``(i - stop_after) % park_templates`` moved to the stop pose
+  ``(speed_m * stop_after, lane_y_m, 0)``.  ``stop_after`` is a whole
+  number of periods, so the stop pose is the street's phase 0, where a
+  sweep cast from the pose ``(0, lane_y_m, 0)`` is exactly what the sensor
+  sees; the ``park_templates`` park sweeps are cast there, each with range
+  noise of its own drawn from the seed apart from the drive's.
 
 Every seed inserts the same returns of the same street; the seed draws the
 noise.
@@ -160,7 +168,8 @@ def sweep(position, boxes, sensor: dict):
 
 
 class Traffic:
-    """``step(i)`` -> (points f32[N, 3], position f32[3], template index)."""
+    """``step(i)`` -> (points f32[N, 3], position f32[3], template index).
+    ``templates`` holds the drive's sweeps, then the park sweeps."""
 
     def __init__(self, conf: dict, params: dict, seed: int):
         sensor, world = conf["sensor"], conf["world"]
@@ -172,26 +181,49 @@ class Traffic:
         if self.speed and abs(self.speed * n_templates - period) > 1e-9:
             raise ValueError(f"{n_templates} templates of {self.speed} m "
                              f"are not the street's period of {period} m")
+        self.n_drive = n_templates
+        self.stop_after = None if params.get("stop_after") is None \
+            else int(params["stop_after"])
+        n_park = int(params.get("park_templates", 0))
+        if (self.stop_after is None) != (n_park == 0):
+            raise ValueError("stop_after and park_templates go together")
+        if self.stop_after is not None and (
+                self.stop_after < 0 or self.stop_after % n_templates):
+            raise ValueError(f"stop_after {self.stop_after} is not a "
+                             f"multiple of the {n_templates} templates, so "
+                             f"the stop pose is not the street's phase 0")
         seed = seed % (1 << 63)
         reach = float(sensor["max_range_m"])
         street = street_pillars(world)
-        self.templates = []
-        for k in range(n_templates):
-            x = self.speed * k
+
+        def cast(k: int, x: float, stream: int) -> np.ndarray:
             boxes = repeat(*street, period, x - reach, x + reach)
             if world.get("movers"):
                 boxes = tuple(np.concatenate([b, m]) for b, m in
                               zip(boxes, movers(world, k)))
             origin, ranges, rays = sweep([x, self.lane, 0.0], boxes, sensor)
-            noise = np.random.default_rng([seed, 2, k]).normal(
+            noise = np.random.default_rng([seed, stream, k]).normal(
                 0.0, float(sensor["range_noise_m"]), ranges.shape[0])
             origin = origin - np.array([x, self.lane, 0.0])
-            self.templates.append(returns(origin, ranges + noise, rays))
+            return returns(origin, ranges + noise, rays)
+
+        self.templates = [cast(k, self.speed * k, 2)
+                          for k in range(n_templates)]
+        self.templates += [cast(k, 0.0, 3) for k in range(n_park)]
         # each sweep moved to the pose it was last handed over at
         self._moved = [np.empty_like(t) for t in self.templates]
-        self._at: list = [None] * n_templates
+        self._at: list = [None] * len(self.templates)
+
+    def template(self, i: int) -> int:
+        """The index in ``templates`` of scan ``i``'s sweep."""
+        if self.stop_after is None or i < self.stop_after:
+            return i % self.n_drive
+        return self.n_drive + (i - self.stop_after) % (
+            len(self.templates) - self.n_drive)
 
     def pose(self, i: int) -> np.ndarray:
+        if self.stop_after is not None:
+            i = min(i, self.stop_after)
         return np.float32([self.speed * i, self.lane, 0.0])
 
     def position(self, i: int) -> np.ndarray:
@@ -199,7 +231,7 @@ class Traffic:
 
     def points(self, i: int) -> np.ndarray:
         """Scan ``i`` in the world frame, in a fresh array."""
-        return self.templates[i % len(self.templates)] + self.pose(i)
+        return self.templates[self.template(i)] + self.pose(i)
 
     def step(self, i: int):
         """Scan ``i`` in the world frame (the map copies it before
@@ -209,7 +241,7 @@ class Traffic:
         hand over.  The sums are those of ``points(i)``, taken over the flat
         rows: a broadcast over rows of 3 runs numpy's inner loop 3 values at
         a time (1 ms a sweep against 0.3)."""
-        k = i % len(self.templates)
+        k = self.template(i)
         pose = self.pose(i)
         if not np.array_equal(self._at[k], pose):
             t = self.templates[k]
